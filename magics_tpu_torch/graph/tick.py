@@ -1,0 +1,827 @@
+"""One simulation FixedUpdate tick (counterpart of magics_tpu's graph/tick.py).
+
+The same system chain (robot.rs:86-108): spawns, reached_waypoint,
+connectivity, failed comms, the two prior updates, the GBP iteration
+schedule, message counters, collisions, goal areas and the on-device logs.
+Everything is dense and masked, as plain functions on tensors; each returns a
+new `SimState` and leaves its input untouched (fields it changes are fresh
+tensors).
+
+The port carries the main path: dense connectivity and collisions, the
+"receiver_compact" inter-robot exchange, and an unrolled schedule. The
+per-system functions implement the receiver-computes semantics of the JAX
+package's `ext_exchange != "sender"` branches; `step` and `iterate_gbp`
+refuse every other configuration with NotImplementedError naming the ROADMAP
+item that ports it.
+"""
+
+from __future__ import annotations
+
+from dataclasses import replace
+
+import torch
+
+from magics_tpu.core.constants import TRACKING_SKIP_FIRST_N_FACTOR_ITERS
+from magics_tpu_torch.core.linalg import inv4_rowscaled
+from magics_tpu_torch.graph import factors as F
+from magics_tpu_torch.graph import variables as VU
+from magics_tpu_torch.graph.state import GbpParams, SimState
+from magics_tpu_torch.parallel.comm import LOCAL
+
+
+# --------------------------------------------------------------------------
+# helpers
+# --------------------------------------------------------------------------
+
+def _exp(mask: torch.Tensor, ndim_extra: int) -> torch.Tensor:
+    """Expand a boolean mask with trailing singleton dims."""
+    return mask.reshape(mask.shape + (1,) * ndim_extra)
+
+
+def _where_rows(gate_r: torch.Tensor, new: torch.Tensor, old: torch.Tensor) -> torch.Tensor:
+    """Per-robot select between two [R, ...] tensors."""
+    return torch.where(_exp(gate_r, new.ndim - 1), new, old)
+
+
+def _set_where(arr: torch.Tensor, index, gate: torch.Tensor, value) -> torch.Tensor:
+    """A copy of `arr` with `arr[index]` replaced by `value` where the
+    per-robot `gate` holds (the JAX `.at[index].set(where(gate, value, old))`)."""
+    out = arr.clone()
+    old = arr[index]
+    value = torch.as_tensor(value, dtype=arr.dtype, device=arr.device)
+    out[index] = torch.where(_exp(gate, old.ndim - gate.ndim), value, old)
+    return out
+
+
+def _clip_idx(idx: torch.Tensor, n: int) -> torch.Tensor:
+    return idx.clamp(0, n - 1).long()
+
+
+def compute_back_slots(nbr_idx: torch.Tensor, nbr_mask: torch.Tensor, comm=LOCAL):
+    """back[r, k] = slot k' on robot j = nbr_idx[r,k] with nbr_idx[j,k'] == r
+    (the first such slot: `argmax` returns the first maximum, like
+    `jnp.argmax`); has_back where such a slot exists and the slot is live."""
+    Rl, K = nbr_idx.shape
+    nbr_all = comm.all_robots(nbr_idx)
+    their_rows = nbr_all[_clip_idx(nbr_idx, nbr_all.shape[0])]   # [Rl, K, K]
+    me = comm.row_ids(Rl, nbr_idx.device).to(nbr_idx.dtype)[:, None, None]
+    eq = their_rows == me
+    back = eq.to(torch.uint8).argmax(dim=-1).to(torch.int32)
+    has_back = eq.any(dim=-1) & nbr_mask
+    return back, has_back
+
+
+# --------------------------------------------------------------------------
+# spawn / waypoints / comms
+# --------------------------------------------------------------------------
+
+def activate_due_spawns(state: SimState) -> SimState:
+    """Activate robots whose spawn tick has arrived; robots awaiting an
+    in-flight plan spawn Idle (active but not mission-active)."""
+    due = (
+        ~state.active
+        & ~state.completed
+        & (state.spawn_tick >= 0)
+        & (state.spawn_tick <= state.tick)
+    )
+    return replace(
+        state,
+        active=state.active | due,
+        mission_active=state.mission_active | (due & ~state.plan_pending),
+    )
+
+
+def check_waypoints(state: SimState, params: GbpParams) -> SimState:
+    """`reached_waypoint` (robot.rs:2080-2176) + despawn-on-finish."""
+    R, V = state.prior_mean.shape[:2]
+    rows = torch.arange(R, device=state.device)
+    gate = state.active & state.mission_active & ~state.completed
+    gate = gate & (state.target_idx < state.n_waypoints)
+
+    is_last = state.target_idx == state.n_waypoints - 1
+    check_var = torch.where(is_last, state.fin_check_var, state.wp_check_var)
+    check_d2 = torch.where(is_last, state.fin_check_dist2, state.wp_check_dist2)
+
+    est = state.belief_mean[rows, _clip_idx(check_var, V), :2]          # [R, 2]
+    wp = state.waypoints[rows, _clip_idx(state.target_idx, state.waypoints.shape[1]), :2]
+
+    d2 = ((est - wp) ** 2).sum(dim=-1)
+    reached = gate & (d2 < check_d2)
+
+    new_target = torch.where(reached, state.target_idx + 1, state.target_idx)
+    newly_completed = reached & (new_target >= state.n_waypoints)
+    completed = state.completed | newly_completed
+
+    elapsed = state.tick.to(state.finished_at.dtype) / params.hz
+    finished_at = torch.where(newly_completed, elapsed, state.finished_at)
+    trk_index = torch.where(reached & ~newly_completed, new_target, state.trk_index)
+
+    active = state.active
+    if params.despawn_on_final_waypoint:
+        active = active & ~newly_completed
+
+    return replace(
+        state,
+        target_idx=new_target,
+        completed=completed,
+        finished_at=finished_at,
+        trk_index=trk_index,
+        active=active,
+        mission_active=state.mission_active & ~newly_completed,
+    )
+
+
+def update_failed_comms(
+    state: SimState, params: GbpParams, comm=LOCAL,
+    generator: torch.Generator | None = None,
+) -> SimState:
+    """Bernoulli antenna failure per robot per tick (robot.rs:1593-1601).
+
+    The draws come from `generator` (on the state's device), not from the
+    JAX PRNG: the two give different bits from the same seed, so failure
+    sweeps compare by distribution only (ROADMAP fault F3)."""
+    if params.comms_failure_rate <= 0.0:
+        return replace(state, antenna=torch.ones_like(state.antenna))
+    if generator is None:
+        raise ValueError("comms_failure_rate > 0 needs a torch.Generator")
+    Rl = state.antenna.shape[0]
+    R = Rl * getattr(comm, "n_shards", 1)
+    off = torch.rand(R, generator=generator, device=state.device) < params.comms_failure_rate
+    return replace(state, antenna=~comm.take_rows(off, Rl))
+
+
+# --------------------------------------------------------------------------
+# connectivity (delete/create inter-robot factors)
+# --------------------------------------------------------------------------
+
+def update_connectivity(state: SimState, params: GbpParams, comm=LOCAL) -> SimState:
+    """Neighbour discovery + inter-robot factor lifecycle, dense O(R^2)
+    (magics_tpu tick.py:update_connectivity).
+
+    New neighbours fill free slots nearest-first, ties by ascending id. The
+    JAX package gets that order from `lax.top_k`, which is stable;
+    `torch.topk` on CUDA is not, so the port takes the first K columns of a
+    stable ascending sort of the distance keys (ROADMAP fault F2).
+    """
+    Rl, K = state.nbr_idx.shape
+    dev = state.device
+    pos_all = comm.all_robots(state.pos)
+    act_all = comm.all_robots(state.active)
+    R = act_all.shape[0]
+    me = comm.row_ids(Rl, dev)
+
+    diff = state.pos[:, None, :] - pos_all[None, :, :]
+    d2 = (diff * diff).sum(dim=-1)                        # [Rl, R]
+    radius2 = params.comms_radius * params.comms_radius
+    cols = torch.arange(R, dtype=torch.int32, device=dev)
+    not_self = cols[None, :] != me[:, None]
+    in_range = (d2 <= radius2) & not_self & state.active[:, None] & act_all[None, :]
+
+    rows = torch.arange(Rl, device=dev)[:, None]
+    keep = state.nbr_mask & in_range[rows, _clip_idx(state.nbr_idx, R)]
+
+    kept_ids = torch.where(keep, state.nbr_idx, torch.full_like(state.nbr_idx, -1))
+    conn = (kept_ids[:, :, None] == cols[None, None, :]).any(dim=1)   # [Rl, R]
+    new_pair = in_range & ~conn
+
+    key = torch.where(new_pair, d2, torch.full_like(d2, float("inf")))
+    kk = min(K, R)
+    sorted_key, order = torch.sort(key, dim=1, stable=True)
+    cand_id = order[:, :kk]
+    cand_ok = sorted_key[:, :kk] < float("inf")
+    free_rank = torch.cumsum((~keep).to(torch.int32), dim=1) - 1      # [Rl, K]
+    fr = free_rank.clamp(0, kk - 1).long()
+    new_id = torch.gather(cand_id, 1, fr).to(torch.int32)
+    new_ok = torch.gather(cand_ok, 1, fr)
+    take = ~keep & (free_rank >= 0) & (free_rank < kk) & new_ok
+    nbr_idx_new = torch.where(take, new_id, torch.full_like(new_id, -1))
+    nbr_idx_new = torch.where(keep, state.nbr_idx, nbr_idx_new)
+
+    n_new = new_pair.sum(dim=1)
+    n_free = (~keep).sum(dim=1)
+    dropped = comm.psum(torch.clamp(n_new - n_free, min=0).sum())
+    return _finish_connectivity(state, keep, nbr_idx_new, comm, dropped)
+
+
+def _finish_connectivity(
+    state: SimState, keep: torch.Tensor, nbr_idx_new: torch.Tensor,
+    comm, dropped: torch.Tensor,
+) -> SimState:
+    """Shared connectivity tail: reciprocity, message-state reset for churned
+    slots, new-factor seeding, and the reciprocal-slot cache."""
+    is_new = ~keep & (nbr_idx_new >= 0)
+    mask_new = keep | is_new
+
+    back, has_back = compute_back_slots(nbr_idx_new, mask_new, comm)
+    mask_new = mask_new & has_back
+    is_new = is_new & mask_new
+
+    slot_reset = ~keep
+
+    def reset(arr):
+        return torch.where(_exp(slot_reset, arr.ndim - 2), torch.zeros_like(arr), arr)
+
+    ir_v2f_ext_pos = reset(state.ir_v2f_ext_pos)
+    seeded = torch.where(slot_reset[..., None], False, state.ir_int_seeded)
+
+    # receiver-computes mirror: the PEER's new factor was seeded with MY
+    # current belief position, so the mirror write is local
+    own_pos = state.belief_mean[:, None, 1:, :2]
+    ir_v2f_ext_pos = torch.where(_exp(is_new, 2), own_pos, ir_v2f_ext_pos)
+
+    K = nbr_idx_new.shape[1]
+    mask_all = comm.all_robots(mask_new)
+    j_safe = _clip_idx(nbr_idx_new, mask_all.shape[0])
+    peer_alive = mask_all.reshape(-1)[j_safe * K + _clip_idx(back, K)]
+    has_back_final = mask_new & peer_alive
+
+    return replace(
+        state,
+        nbr_idx=torch.where(mask_new, nbr_idx_new, torch.full_like(nbr_idx_new, -1)),
+        nbr_mask=mask_new,
+        nbr_back=back,
+        nbr_has_back=has_back_final,
+        ir_int_seeded=seeded,
+        ir_v2f_ext_pos=ir_v2f_ext_pos,
+        ir_f2v_ext=reset(state.ir_f2v_ext),
+        ext_inbox=reset(state.ext_inbox),
+        nbr_overflow=state.nbr_overflow + dropped.to(torch.int32),
+    )
+
+
+# --------------------------------------------------------------------------
+# prior updates
+# --------------------------------------------------------------------------
+
+def update_prior_horizon(state: SimState, params: GbpParams, comm=LOCAL) -> SimState:
+    """`update_prior_of_horizon_state` (robot.rs:2182-2283): the horizon
+    variable's prior is pulled towards the next waypoint at (at most) target
+    speed; its belief mean jumps there, its full belief goes to its factors
+    and its own inbox is emptied. No-op with a zero-internal schedule."""
+    if not any(i for i, _ in params.schedule):
+        return state
+
+    R, V = state.prior_mean.shape[:2]
+    f = state.prior_mean.dtype
+    rows = torch.arange(R, device=state.device)
+    gate = (
+        state.active
+        & state.mission_active
+        & ~state.completed
+        & (state.target_idx < state.n_waypoints)
+    )
+
+    est_pos = state.belief_mean[:, V - 1, :2]
+    wp = state.waypoints[rows, _clip_idx(state.target_idx, state.waypoints.shape[1]), :2]
+    h2w = wp - est_pos
+    dist = torch.linalg.vector_norm(h2w, dim=-1, keepdim=True)
+    direction = torch.where(
+        dist > 0, h2w / torch.where(dist > 0, dist, torch.ones_like(dist)),
+        torch.zeros_like(h2w),
+    )
+    new_vel = torch.clamp(dist, max=params.target_speed) * direction
+    new_pos = est_pos + new_vel * params.dt
+    new_mean = torch.cat([new_pos, new_vel], dim=-1).to(f)  # [R, 4]
+
+    h_eta = state.belief_eta[:, V - 1]
+    h_lam = state.belief_lam[:, V - 1]
+    hor, last_edge = (slice(None), V - 1), (slice(None), V - 2, 1)
+
+    # receiver-computes mirrors (magics_tpu state.py): the PEER's factor
+    # received MY new horizon mean, and the PEER's seeded flag for its slot
+    # V-2 went true where ITS gate held
+    gate_all = comm.all_robots(gate)
+    src = _clip_idx(state.nbr_idx, gate_all.shape[0])
+    seeded = state.ir_int_seeded.clone()
+    seeded[:, :, V - 2] |= gate_all[src] & state.nbr_has_back
+    ir_v2f_ext_pos = state.ir_v2f_ext_pos.clone()
+    ir_v2f_ext_pos[:, :, V - 2] = torch.where(
+        (gate[:, None] & state.nbr_has_back)[..., None],
+        new_mean[:, None, :2],
+        state.ir_v2f_ext_pos[:, :, V - 2],
+    )
+
+    return replace(
+        state,
+        prior_mean=_set_where(state.prior_mean, hor, gate, new_mean),
+        belief_mean=_set_where(state.belief_mean, hor, gate, new_mean),
+        dyn_v2f_eta=_set_where(state.dyn_v2f_eta, last_edge, gate, h_eta),
+        dyn_v2f_lam=_set_where(state.dyn_v2f_lam, last_edge, gate, h_lam),
+        dyn_v2f_mu=_set_where(state.dyn_v2f_mu, last_edge, gate, new_mean),
+        snap_eta=_set_where(state.snap_eta, hor, gate, h_eta),
+        snap_lam=_set_where(state.snap_lam, hor, gate, h_lam),
+        snap_mu=_set_where(state.snap_mu, hor, gate, new_mean),
+        ir_int_seeded=seeded,
+        ir_v2f_ext_pos=ir_v2f_ext_pos,
+        # empty the horizon variable's inbox
+        dyn_f2v_eta=_set_where(state.dyn_f2v_eta, last_edge, gate, 0.0),
+        dyn_f2v_lam=_set_where(state.dyn_f2v_lam, last_edge, gate, 0.0),
+        ext_inbox=_set_where(state.ext_inbox, (slice(None), slice(None), V - 2), gate, 0.0),
+    )
+
+
+def update_prior_current(state: SimState, params: GbpParams) -> SimState:
+    """`update_prior_of_current_state_v3` (robot.rs:2286-2338): the current
+    variable's mean advances towards variable 1 by dt / t0 and the robot's
+    position moves by the same amount."""
+    gate = state.active & (state.mission_active | state.completed)
+
+    time_scale = (params.dt / state.t0)[:, None]
+    change = time_scale * (state.belief_mean[:, 1] - state.belief_mean[:, 0])
+    new_mean = state.belief_mean[:, 0] + change
+
+    c_eta = state.belief_eta[:, 0]
+    c_lam = state.belief_lam[:, 0]
+    cur, first_edge = (slice(None), 0), (slice(None), 0, 0)
+
+    return replace(
+        state,
+        prior_mean=_set_where(state.prior_mean, cur, gate, new_mean),
+        belief_mean=_set_where(state.belief_mean, cur, gate, new_mean),
+        dyn_v2f_eta=_set_where(state.dyn_v2f_eta, first_edge, gate, c_eta),
+        dyn_v2f_lam=_set_where(state.dyn_v2f_lam, first_edge, gate, c_lam),
+        dyn_v2f_mu=_set_where(state.dyn_v2f_mu, first_edge, gate, new_mean),
+        snap_eta=_set_where(state.snap_eta, cur, gate, c_eta),
+        snap_lam=_set_where(state.snap_lam, cur, gate, c_lam),
+        snap_mu=_set_where(state.snap_mu, cur, gate, new_mean),
+        dyn_f2v_eta=_set_where(state.dyn_f2v_eta, first_edge, gate, 0.0),
+        dyn_f2v_lam=_set_where(state.dyn_f2v_lam, first_edge, gate, 0.0),
+        pos=_where_rows(gate, state.pos + change[:, :2], state.pos),
+    )
+
+
+# --------------------------------------------------------------------------
+# GBP passes — the plain path, and the in-port reference for the kernels
+# --------------------------------------------------------------------------
+
+def _not_idle(state: SimState) -> torch.Tensor:
+    return state.mission_active | state.completed
+
+
+def _delta_t(state: SimState, params: GbpParams) -> torch.Tensor:
+    """[R, V-1] dynamic-factor time gaps t0 * (ts[i+1] - ts[i])."""
+    ts = torch.as_tensor(params.variable_timesteps, dtype=state.t0.dtype, device=state.device)
+    return state.t0[:, None] * (ts[1:] - ts[:-1])[None, :]
+
+
+def internal_factor_pass(state: SimState, sdf: torch.Tensor, params: GbpParams) -> SimState:
+    """All non-interrobot factors update (factorgraph.rs:686-714)."""
+    V = state.prior_mean.shape[1]
+    f = state.prior_mean.dtype
+    gate = state.active & _not_idle(state)
+    updates: dict = {}
+
+    if params.dynamic_enabled:
+        f2v_eta, f2v_lam = F.dynamic_factor_messages(
+            state.dyn_v2f_eta, state.dyn_v2f_lam, state.dyn_v2f_mu,
+            _delta_t(state, params), params.sigma_factor_dynamics, dtype=f,
+        )
+        updates["dyn_f2v_eta"] = _where_rows(gate, f2v_eta, state.dyn_f2v_eta)
+        updates["dyn_f2v_lam"] = _where_rows(gate, f2v_lam, state.dyn_f2v_lam)
+
+    world = (params.world_width, params.world_height)
+    if params.obstacle_enabled and V > 2:
+        h0, hx, hy = F.obstacle_taps(state.obs_v2f_mu, sdf, world, dtype=f)
+        o_eta, o_lam = F.obstacle_messages_from_taps(
+            h0, hx, hy, state.obs_v2f_mu, F.obstacle_delta(tuple(sdf.shape), world),
+            params.sigma_factor_obstacle, dtype=f,
+        )
+        updates["obs_f2v_eta"] = _where_rows(gate, o_eta, state.obs_f2v_eta)
+        updates["obs_f2v_lam"] = _where_rows(gate, o_lam, state.obs_f2v_lam)
+
+    if params.tracking_enabled and V > 2:
+        # factorgraph.rs:701 — skip tracking for the first 10 factor passes
+        t_gate = gate & (state.iter_count_factor >= TRACKING_SKIP_FIRST_N_FACTOR_ITERS)
+        t_eta, t_lam, new_record, new_timeout, last_pos, last_val, skipped = (
+            F.tracking_factor_messages(
+                state.trk_v2f_mu, state.trk_path, state.trk_path_len,
+                state.trk_record, state.trk_index, state.trk_timeout,
+                params.tracking_switch_padding, params.tracking_attraction_distance,
+                params.sigma_factor_tracking, dtype=f,
+            )
+        )
+        measured = t_gate[:, None] & ~skipped
+        updates["trk_f2v_eta"] = _where_rows(t_gate, t_eta, state.trk_f2v_eta)
+        updates["trk_f2v_lam"] = _where_rows(t_gate, t_lam, state.trk_f2v_lam)
+        updates["trk_record"] = _where_rows(t_gate, new_record, state.trk_record)
+        updates["trk_timeout"] = _where_rows(t_gate, new_timeout, state.trk_timeout)
+        updates["trk_last_pos"] = torch.where(measured[..., None], last_pos, state.trk_last_pos)
+        updates["trk_last_val"] = torch.where(measured, last_val, state.trk_last_val)
+
+    updates["iter_count_factor"] = state.iter_count_factor + gate.to(torch.int32)
+    return replace(state, **updates)
+
+
+def _seed_mirror(state: SimState, gate: torch.Tensor, comm=LOCAL) -> torch.Tensor:
+    """Receiver-computes mirror of the PEER's seeded flag: the peer's cavity
+    for its reciprocal slot went live where ITS internal gate held."""
+    gate_all = comm.all_robots(gate)
+    src = _clip_idx(state.nbr_idx, gate_all.shape[0])
+    return state.ir_int_seeded | (gate_all[src] & state.nbr_has_back)[..., None]
+
+
+def internal_variable_pass(state: SimState, params: GbpParams, comm=LOCAL) -> SimState:
+    """Belief update + responses to internal factors (factorgraph.rs:762-790)."""
+    V = state.prior_mean.shape[1]
+    gate = state.active & _not_idle(state)
+
+    eta, lam = VU.sum_messages(
+        prior_mean=state.prior_mean, prior_sigma=state.prior_sigma,
+        dyn_f2v_eta=state.dyn_f2v_eta, dyn_f2v_lam=state.dyn_f2v_lam,
+        obs_f2v_eta=state.obs_f2v_eta, obs_f2v_lam=state.obs_f2v_lam,
+        trk_f2v_eta=state.trk_f2v_eta, trk_f2v_lam=state.trk_f2v_lam,
+        ext_inbox=state.ext_inbox,
+    )
+    upd = VU.update_beliefs(eta, lam, state.belief_mean)
+
+    belief_eta = _where_rows(gate, upd.eta, state.belief_eta)
+    belief_lam = _where_rows(gate, upd.lam, state.belief_lam)
+    belief_mean = _where_rows(gate, upd.mean, state.belief_mean)
+    updates: dict = {
+        "belief_eta": belief_eta,
+        "belief_lam": belief_lam,
+        "belief_mean": belief_mean,
+    }
+
+    if params.dynamic_enabled:
+        # dyn edge e: slot 0 <- var e, slot 1 <- var e+1
+        v_eta = torch.stack([belief_eta[:, :-1], belief_eta[:, 1:]], dim=2)
+        v_lam = torch.stack([belief_lam[:, :-1], belief_lam[:, 1:]], dim=2)
+        v_mu = torch.stack([belief_mean[:, :-1], belief_mean[:, 1:]], dim=2)
+        updates["dyn_v2f_eta"] = _where_rows(gate, v_eta - state.dyn_f2v_eta, state.dyn_v2f_eta)
+        updates["dyn_v2f_lam"] = _where_rows(gate, v_lam - state.dyn_f2v_lam, state.dyn_v2f_lam)
+        updates["dyn_v2f_mu"] = _where_rows(gate, v_mu, state.dyn_v2f_mu)
+
+    if V > 2:
+        if params.obstacle_enabled:
+            updates["obs_v2f_mu"] = _where_rows(gate, belief_mean[:, 1 : V - 1], state.obs_v2f_mu)
+        if params.tracking_enabled:
+            updates["trk_v2f_mu"] = _where_rows(gate, belief_mean[:, 1 : V - 1], state.trk_v2f_mu)
+
+    # snapshot for own inter-robot factors (the response to an always-empty
+    # inbox entry is the full belief)
+    updates["snap_eta"] = _where_rows(gate, belief_eta, state.snap_eta)
+    updates["snap_lam"] = _where_rows(gate, belief_lam, state.snap_lam)
+    updates["snap_mu"] = _where_rows(gate, belief_mean, state.snap_mu)
+    if params.interrobot_enabled:
+        updates["ir_int_seeded"] = _seed_mirror(state, gate, comm)
+    return replace(state, **updates)
+
+
+def _external_factor_pass_receiver(
+    state: SimState, params: GbpParams, comm=LOCAL
+) -> SimState:
+    """Receiver-computes inter-robot exchange, "receiver_compact": each
+    receiver recomputes its incoming messages from the peers' compact cavity
+    tables [R, V-1, 8] (a plain row gather of a contiguous table), the mirror
+    of its own positions as held by the peer, and slot-deterministic tiny
+    offsets (magics_tpu tick.py:_external_factor_pass_receiver)."""
+    R, K = state.nbr_idx.shape
+    V1 = state.prior_mean.shape[1] - 1
+    f = state.prior_mean.dtype
+    dev = state.device
+
+    send_gate = state.active & state.antenna & _not_idle(state)
+    gate_all = comm.all_robots(send_gate)
+    src = _clip_idx(state.nbr_idx, gate_all.shape[0])
+    deliver = send_gate[:, None] & state.nbr_mask & gate_all[src] & state.nbr_has_back
+
+    gids_j = src.to(f)
+    back = state.nbr_back.to(f)
+    iota_v = torch.arange(V1, dtype=f, device=dev)
+    tiny = 1e-6 * (gids_j[..., None] * (K * V1) + back[..., None] * V1 + iota_v + 1.0)
+
+    rad_all = comm.all_robots(state.radius)
+    safety = (params.safety_distance_multiplier * rad_all[src])[..., None].expand(R, K, V1)
+
+    tables = F.compact_snap_tables(state.snap_mu, state.snap_eta, state.snap_lam, dtype=f)
+    tables_all = comm.all_robots(tables).reshape(-1, V1 * 8)
+    peer_tab = tables_all.index_select(0, src.reshape(-1)).reshape(R, K, V1, 8)
+    msg = F.interrobot_rank1_messages_compact(
+        peer_tab, state.ir_int_seeded, state.ir_v2f_ext_pos, safety, tiny,
+        params.sigma_factor_interrobot, dtype=f,
+    )
+    return replace(
+        state,
+        ext_inbox=torch.where(deliver[..., None, None], msg, state.ext_inbox),
+        iter_count_factor=state.iter_count_factor + send_gate.to(torch.int32),
+    )
+
+
+def external_factor_pass(state: SimState, params: GbpParams, comm=LOCAL) -> SimState:
+    """Inter-robot factor update + message delivery (factorgraph.rs:719-760),
+    receiver-computes."""
+    if not params.interrobot_enabled:
+        return state
+    return _external_factor_pass_receiver(state, params, comm)
+
+
+def external_variable_pass(state: SimState, params: GbpParams, comm=LOCAL) -> SimState:
+    """Belief update + responses to external factors (factorgraph.rs:794-826).
+    Under receiver-computes the response is the mirror write of MY new belief
+    positions under the (symmetric) delivery mask: no gather."""
+    if not params.interrobot_enabled:
+        return state
+
+    gate = state.active & state.antenna & _not_idle(state)
+    eta, lam = VU.sum_messages(
+        prior_mean=state.prior_mean, prior_sigma=state.prior_sigma,
+        dyn_f2v_eta=state.dyn_f2v_eta, dyn_f2v_lam=state.dyn_f2v_lam,
+        obs_f2v_eta=state.obs_f2v_eta, obs_f2v_lam=state.obs_f2v_lam,
+        trk_f2v_eta=state.trk_f2v_eta, trk_f2v_lam=state.trk_f2v_lam,
+        ext_inbox=state.ext_inbox,
+    )
+    upd = VU.update_beliefs(eta, lam, state.belief_mean)
+    belief_mean = _where_rows(gate, upd.mean, state.belief_mean)
+    return replace(
+        state,
+        belief_eta=_where_rows(gate, upd.eta, state.belief_eta),
+        belief_lam=_where_rows(gate, upd.lam, state.belief_lam),
+        belief_mean=belief_mean,
+        ir_v2f_ext_pos=_mirror_positions(state, gate, belief_mean[:, 1:, :2], comm),
+    )
+
+
+def _mirror_positions(
+    state: SimState, gate: torch.Tensor, own_pos: torch.Tensor, comm=LOCAL
+) -> torch.Tensor:
+    """The receiver-computes response delivery: where this pass's delivery
+    condition holds (gate[r] & gate[j] & both slots alive, symmetric in
+    (r, j)), the mirror of what the peer holds becomes MY belief positions
+    own_pos [R, V-1, 2]."""
+    gate_all = comm.all_robots(gate)
+    src = _clip_idx(state.nbr_idx, gate_all.shape[0])
+    deliver = gate[:, None] & state.nbr_mask & gate_all[src] & state.nbr_has_back
+    return torch.where(deliver[..., None, None], own_pos[:, None], state.ir_v2f_ext_pos)
+
+
+def iterate_gbp(state: SimState, sdf: torch.Tensor, params: GbpParams, comm=LOCAL) -> SimState:
+    """`iterate_gbp_v2` (robot.rs:1769-1861): run the iteration schedule,
+    unrolled. With `use_pallas` the slots run on the hot layout through the
+    hand-written kernels (kernels/hot.py)."""
+    _require_ported(params)
+    if not params.schedule:
+        return state
+    if params.use_pallas:
+        from magics_tpu_torch.kernels.hot import iterate_gbp_hot
+
+        return iterate_gbp_hot(state, sdf, params, comm=comm)
+
+    for internal_flag, external_flag in params.schedule:
+        if internal_flag:
+            state = internal_factor_pass(state, sdf, params)
+            state = internal_variable_pass(state, params, comm)
+        if external_flag:
+            state = external_factor_pass(state, params, comm)
+            state = external_variable_pass(state, params, comm)
+    return state
+
+
+# --------------------------------------------------------------------------
+# counters, collisions, goal areas, logs
+# --------------------------------------------------------------------------
+
+def update_message_counts(state: SimState, params: GbpParams, comm=LOCAL) -> SimState:
+    """Per-robot message counters [R, 4] = (internal sent, external sent,
+    internal received, external received), accumulated once per tick in
+    closed form (magics_tpu tick.py:update_message_counts)."""
+    V = state.prior_mean.shape[1]
+    n_int = sum(1 for i, _ in params.schedule if i)
+    n_ext = sum(1 for _, e in params.schedule if e)
+    if n_int == 0 and n_ext == 0:
+        return state
+    i32 = torch.int32
+
+    gate = (state.active & _not_idle(state)).to(i32)
+    k_active = state.nbr_mask.sum(dim=1).to(i32)
+
+    per_factor_msgs = 0
+    if params.dynamic_enabled:
+        per_factor_msgs += 2 * (V - 1)
+    if params.obstacle_enabled and V > 2:
+        per_factor_msgs += V - 2
+    if params.tracking_enabled and V > 2:
+        per_factor_msgs += V - 2
+    internal = n_int * (gate * (2 * per_factor_msgs) + gate * k_active * (V - 1))
+
+    send_gate = (state.active & state.antenna & _not_idle(state)).to(i32)
+    ext_sent = torch.zeros_like(internal)
+    ext_recv = torch.zeros_like(internal)
+    if params.interrobot_enabled and n_ext > 0:
+        send_gate_all = comm.all_robots(send_gate)
+        src = _clip_idx(state.nbr_idx, send_gate_all.shape[0])
+        produced = send_gate[:, None] * state.nbr_mask.to(i32)
+        deliver = (
+            (send_gate[:, None] > 0)
+            & state.nbr_mask
+            & (send_gate_all[src] > 0)
+            & state.nbr_has_back
+        ).to(i32)
+        n_prod = produced.sum(dim=1).to(i32)
+        n_del = deliver.sum(dim=1).to(i32)
+        ext_sent = n_ext * (n_prod * (V - 1) + n_del * (V - 1))
+        ext_recv = n_ext * (2 * n_del * (V - 1))
+
+    counts = torch.stack([internal, ext_sent, internal, ext_recv], dim=1).to(i32)
+    return replace(state, msg_counts=state.msg_counts + counts)
+
+
+def update_collisions(
+    state: SimState, params: GbpParams, env_dist: torch.Tensor | None = None,
+    comm=LOCAL,
+) -> SimState:
+    """Robot-robot (bounding discs) and robot-environment collision events
+    with hysteresis (collisions.rs:72-140,146-227), dense [R, R]."""
+    Rl = state.pos.shape[0]
+    dev = state.device
+    pos_all = comm.all_robots(state.pos)
+    rad_all = comm.all_robots(state.radius)
+    act_all = comm.all_robots(state.active)
+    R = act_all.shape[0]
+    me = comm.row_ids(Rl, dev)
+    cols = torch.arange(R, dtype=torch.int32, device=dev)
+
+    diff = state.pos[:, None, :] - pos_all[None, :, :]
+    d2 = (diff * diff).sum(dim=-1)
+    rsum = state.radius[:, None] + rad_all[None, :]
+    upper = cols[None, :] > me[:, None]
+    pair_overlap = (d2 < rsum * rsum) & upper & state.active[:, None] & act_all[None, :]
+    new_pair = pair_overlap & ~state.rr_overlap
+    new_events = comm.psum(new_pair.sum())
+    rr_count = (
+        state.rr_count
+        + new_pair.sum(dim=1).to(torch.int32)
+        + comm.scatter_rows(new_pair.sum(dim=0)).to(torch.int32)
+    )
+    updates = dict(
+        rr_overlap=pair_overlap,
+        rr_collisions=state.rr_collisions + new_events.to(torch.int32),
+        rr_count=rr_count,
+    )
+    if env_dist is not None:
+        updates.update(_env_collision_updates(state, params, env_dist, comm))
+    return replace(state, **updates)
+
+
+def _env_collision_updates(
+    state: SimState, params: GbpParams, env_dist: torch.Tensor, comm=LOCAL
+) -> dict:
+    """Robot-environment overlap via the euclidean distance field
+    (collisions.rs:108-140)."""
+    H, W = env_dist.shape
+    ww, wh = params.world_width, params.world_height
+    xf = (state.pos[:, 0] + ww / 2.0) * (W / ww)
+    yf = (-state.pos[:, 1] + wh / 2.0) * (H / wh)
+    # clip then truncate, like jnp.clip(...).astype(int32)
+    xi = xf.clamp(0, W - 1).to(torch.int32).long()
+    yi = yf.clamp(0, H - 1).to(torch.int32).long()
+    re_overlap = state.active & (env_dist[yi, xi] < state.radius)
+    new_re = re_overlap & ~state.re_overlap
+    return dict(
+        re_overlap=re_overlap,
+        re_collisions=state.re_collisions + comm.psum(new_re.sum()).to(torch.int32),
+        re_count=state.re_count + new_re.to(torch.int32),
+    )
+
+
+def update_goal_areas(state: SimState, params: GbpParams) -> SimState:
+    """Goal-area intersection check (goal_area.rs:67-104): a robot disc
+    intersecting an area's AABB records the first-reach timestamp."""
+    if state.ga_aabb.shape[0] == 0:
+        return state
+    mn = state.ga_aabb[:, None, 0:2]
+    mx = state.ga_aabb[:, None, 2:4]
+    p = state.pos[None, :, :]
+    clamped = torch.minimum(torch.maximum(p, mn), mx)
+    d2 = ((p - clamped) ** 2).sum(dim=-1)
+    hit = state.active[None, :] & (d2 <= state.radius[None, :] ** 2)
+    now = state.tick.to(state.ga_history.dtype) / params.hz
+    first = hit & (state.ga_history < 0)
+    return replace(state, ga_history=torch.where(first, now, state.ga_history))
+
+
+def log_positions(state: SimState, params: GbpParams) -> SimState:
+    """Sample positions + velocities (and, with viz_log_capacity, variable
+    position means, marginal position covariances and tracking measurement
+    points) into the on-device ring buffers every `log_every` ticks
+    (tracking.rs:48-110,156-203). Inactive robots log NaN. The write index
+    stays a tensor, so logging never syncs with the host."""
+    if params.log_every <= 0 or params.log_capacity <= 0:
+        return state
+    f32 = torch.float32
+    nan = torch.tensor(float("nan"), dtype=f32, device=state.device)
+    do_log = (state.tick % params.log_every) == 0
+    zero = torch.zeros_like(state.log_head)
+    idx = torch.where(do_log, state.log_head % params.log_capacity, zero).long()
+    alive = state.active[:, None]
+    sample = torch.where(alive, state.pos.to(f32), nan)
+    vel = torch.where(alive, state.belief_mean[:, 0, 2:4].to(f32), nan)
+
+    def ring_write(log, i, row):
+        out = log.clone()
+        out[i] = torch.where(do_log, row, log[i])
+        return out
+
+    updates = dict(
+        pos_log=ring_write(state.pos_log, idx, sample),
+        vel_log=ring_write(state.vel_log, idx, vel),
+        log_head=state.log_head + do_log.to(torch.int32),
+    )
+    Lv = state.viz_mean.shape[0]
+    if Lv > 0:
+        vidx = torch.where(do_log, state.log_head % Lv, zero).long()
+        a2 = state.active[:, None, None]
+        # row-scaled inverse: the pinned endpoints carry precision 1e30
+        cov, _ = inv4_rowscaled(state.belief_lam)
+        cov3 = torch.stack([cov[..., 0, 0], cov[..., 0, 1], cov[..., 1, 1]], dim=-1)
+        updates["viz_mean"] = ring_write(
+            state.viz_mean, vidx, torch.where(a2, state.belief_mean[..., :2].to(f32), nan)
+        )
+        updates["viz_cov"] = ring_write(state.viz_cov, vidx, torch.where(a2, cov3.to(f32), nan))
+        updates["viz_trk"] = ring_write(
+            state.viz_trk, vidx, torch.where(a2, state.trk_last_pos.to(f32), nan)
+        )
+    return replace(state, **updates)
+
+
+# --------------------------------------------------------------------------
+# the full tick
+# --------------------------------------------------------------------------
+
+def _require_ported(params: GbpParams) -> None:
+    """Refuse the configurations the port does not carry yet, naming the
+    ROADMAP item that ports each."""
+    if params.ext_exchange != "receiver_compact":
+        raise NotImplementedError(
+            "only ext_exchange='receiver_compact' is ported; the 'sender' and "
+            "'receiver' exchanges are ROADMAP Queue 1 item 9"
+        )
+    if params.use_grid:
+        raise NotImplementedError(
+            "grid connectivity/collisions (grid_cell_size > 0) are not ported; "
+            "the swarm-scale grid path is ROADMAP Queue 1 item 10"
+        )
+    if params.scan_schedule:
+        raise NotImplementedError(
+            "scan_schedule is not ported: the port's schedule is a Python loop; "
+            "chunk capture is ROADMAP Queue 1 item 6"
+        )
+    if params.collision_log_capacity > 0:
+        raise NotImplementedError(
+            "collision_log_capacity > 0 (event AABB records) is not ported; "
+            "it is ROADMAP Queue 1 item 11"
+        )
+
+
+def _pin_fp32_matmul() -> None:
+    # The JAX step pins matmul precision to "highest": a float32 product in
+    # TF32 keeps ~3 decimal digits, the covariance residual check then
+    # rejects every inverse and beliefs stop moving. The port's products are
+    # multiply-sums, but no library matmul or convolution on the card path may
+    # round to TF32 either, so both switches are set explicitly.
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def step(
+    state: SimState,
+    sdf: torch.Tensor,
+    params: GbpParams,
+    env_dist: torch.Tensor | None = None,
+    comm=LOCAL,
+    generator: torch.Generator | None = None,
+) -> SimState:
+    """One FixedUpdate tick (robot.rs:86-108 system chain). `generator`
+    drives the comms-failure draws and is needed when
+    comms_failure_rate > 0."""
+    _require_ported(params)
+    if state.pos.is_cuda:
+        _pin_fp32_matmul()
+    state = activate_due_spawns(state)
+    state = check_waypoints(state, params)
+    state = update_connectivity(state, params, comm)
+    state = update_failed_comms(state, params, comm, generator)
+    state = update_prior_horizon(state, params, comm)
+    state = update_prior_current(state, params)
+    state = iterate_gbp(state, sdf, params, comm)
+    state = update_message_counts(state, params, comm)
+    state = update_collisions(state, params, env_dist, comm)
+    state = update_goal_areas(state, params)
+    state = log_positions(state, params)
+    return replace(state, tick=state.tick + 1)
+
+
+def run_ticks(
+    state: SimState,
+    sdf: torch.Tensor,
+    params: GbpParams,
+    n: int,
+    env_dist: torch.Tensor | None = None,
+    comm=LOCAL,
+    generator: torch.Generator | None = None,
+) -> SimState:
+    """Run `n` ticks. A Python loop over `step`: nothing syncs with the host
+    between ticks unless the caller reads a value."""
+    for _ in range(n):
+        state = step(state, sdf, params, env_dist, comm, generator)
+    return state

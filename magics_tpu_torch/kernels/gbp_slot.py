@@ -1,0 +1,468 @@
+"""One GBP slot of the whole swarm on the hot layout: the hand-written CUDA
+kernels (csrc/gbp_slot.cu), their plain PyTorch versions, and the wrappers.
+
+Counterpart of magics_tpu's kernels/gbp_slot.py (the Pallas kernels
+`internal_slot` and `variable_slot`). The "hot layout" is the same: every
+field is a [c..., P, R] plane stack with robots last, and the wrappers take
+and return the same dicts of fields as the JAX functions, so the tests feed
+both the same inputs.
+
+* `internal_slot` — one internal slot: dynamic, obstacle and tracking factor
+  messages, then the variable pass with snapshots and responses.
+* `variable_slot` — the belief update of an external slot.
+
+On a CUDA tensor each wrapper checks dtype, device, shape and contiguity,
+allocates fresh outputs, launches the kernel and adds one to its entry of
+`launch_counts`; it raises on anything the kernel does not take. On a CPU
+tensor it runs the plain version. Nothing falls back from one to the other.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+
+import torch
+
+from magics_tpu_torch.graph import factors as F
+from magics_tpu_torch.graph import variables as VU
+
+
+@dataclasses.dataclass(frozen=True)
+class SlotParams:
+    """Static parameters of the slot (hashable). The fields of magics_tpu's
+    SlotParams but `rtol`, which neither slot reads: the cancellation-free
+    dynamic messages need no negligible-message floor."""
+
+    n_vars: int
+    max_waypoints: int
+    sigma_dynamics: float
+    sigma_obstacle: float
+    sigma_tracking: float
+    obstacle_delta: float
+    switch_padding: float
+    attraction_distance: float
+    dynamic_enabled: bool = True
+    obstacle_enabled: bool = True
+    tracking_enabled: bool = True
+
+
+# input order for the internal slot (hot-layout tensors, R last)
+_IN_FIELDS = (
+    "gate",          # [1, R] f32: active & not_idle
+    "tgate",         # [1, R] f32: gate & tracking iteration threshold
+    "belief_eta",    # [4, V, R]
+    "belief_lam",    # [4, 4, V, R]
+    "belief_mean",   # [4, V, R]
+    "prior_mean",    # [4, V, R]
+    "prior_sigma",   # [V, R]
+    "delta_t",       # [V-1, R]
+    "dyn_v2f_eta",   # [2, 4, V-1, R]
+    "dyn_v2f_lam",   # [2, 4, 4, V-1, R]
+    "dyn_v2f_mu",    # [2, 4, V-1, R]
+    "dyn_f2v_eta",   # [2, 4, V-1, R]
+    "dyn_f2v_lam",   # [2, 4, 4, V-1, R]
+    "obs_h0",        # [V-2, R]
+    "obs_hx",        # [V-2, R]
+    "obs_hy",        # [V-2, R]
+    "obs_v2f_mu",    # [4, V-2, R]
+    "obs_f2v_eta",   # [4, V-2, R]
+    "obs_f2v_lam",   # [4, 4, V-2, R]
+    "trk_v2f_mu",    # [4, V-2, R]
+    "trk_f2v_eta",   # [4, V-2, R]
+    "trk_f2v_lam",   # [4, 4, V-2, R]
+    "trk_record",    # [V-2, R] i32
+    "trk_timeout",   # [V-2, R] i32
+    "trk_last_pos",  # [2, V-2, R]
+    "trk_last_val",  # [V-2, R]
+    "path_x",        # [W, R]
+    "path_y",        # [W, R]
+    "path_len",      # [1, R] i32
+    "ext_sum_eta",   # [4, V, R] — sum over K of delivered external messages
+    "ext_sum_lam",   # [4, 4, V, R]
+)
+
+_OUT_FIELDS = (
+    "belief_eta",
+    "belief_lam",
+    "belief_mean",
+    "snap_eta",
+    "snap_lam",
+    "snap_mu",
+    "dyn_v2f_eta",
+    "dyn_v2f_lam",
+    "dyn_v2f_mu",
+    "dyn_f2v_eta",
+    "dyn_f2v_lam",
+    "obs_v2f_mu",
+    "obs_f2v_eta",
+    "obs_f2v_lam",
+    "trk_v2f_mu",
+    "trk_f2v_eta",
+    "trk_f2v_lam",
+    "trk_record",
+    "trk_timeout",
+    "trk_last_pos",
+    "trk_last_val",
+)
+
+_VAR_IN_FIELDS = (
+    "gate",          # [1, R] f32
+    "belief_eta",    # [4, V, R] (old planes — kept where ~gate)
+    "belief_lam",    # [4, 4, V, R]
+    "belief_mean",   # [4, V, R] (old means — fallback where invalid)
+    "prior_mean",    # [4, V, R]
+    "prior_sigma",   # [V, R]
+    "dyn_f2v_eta",   # [2, 4, V-1, R]
+    "dyn_f2v_lam",   # [2, 4, 4, V-1, R]
+    "obs_f2v_eta",   # [4, V-2, R]
+    "obs_f2v_lam",   # [4, 4, V-2, R]
+    "trk_f2v_eta",   # [4, V-2, R]
+    "trk_f2v_lam",   # [4, 4, V-2, R]
+    "ext_sum_eta",   # [4, V, R]
+    "ext_sum_lam",   # [4, 4, V, R]
+)
+
+_VAR_OUT_FIELDS = ("belief_eta", "belief_lam", "belief_mean")
+
+_INT_FIELDS = frozenset({"trk_record", "trk_timeout", "path_len"})
+
+#: kernel launches per wrapper since the last `reset_launch_counts()`
+launch_counts = {"internal_slot": 0, "variable_slot": 0}
+
+
+def reset_launch_counts() -> None:
+    for name in launch_counts:
+        launch_counts[name] = 0
+
+
+def field_shapes(V: int, R: int, W: int) -> dict[str, tuple[int, ...]]:
+    """The hot-layout shape of every slot field at V variables, R robots and
+    W path points."""
+    V1, V2 = V - 1, V - 2
+    return {
+        "gate": (1, R), "tgate": (1, R), "path_len": (1, R),
+        "belief_eta": (4, V, R), "belief_lam": (4, 4, V, R), "belief_mean": (4, V, R),
+        "snap_eta": (4, V, R), "snap_lam": (4, 4, V, R), "snap_mu": (4, V, R),
+        "prior_mean": (4, V, R), "prior_sigma": (V, R), "delta_t": (V1, R),
+        "dyn_v2f_eta": (2, 4, V1, R), "dyn_v2f_lam": (2, 4, 4, V1, R),
+        "dyn_v2f_mu": (2, 4, V1, R), "dyn_f2v_eta": (2, 4, V1, R),
+        "dyn_f2v_lam": (2, 4, 4, V1, R),
+        "obs_h0": (V2, R), "obs_hx": (V2, R), "obs_hy": (V2, R),
+        "obs_v2f_mu": (4, V2, R), "obs_f2v_eta": (4, V2, R), "obs_f2v_lam": (4, 4, V2, R),
+        "trk_v2f_mu": (4, V2, R), "trk_f2v_eta": (4, V2, R), "trk_f2v_lam": (4, 4, V2, R),
+        "trk_record": (V2, R), "trk_timeout": (V2, R), "trk_last_pos": (2, V2, R),
+        "trk_last_val": (V2, R), "path_x": (W, R), "path_y": (W, R),
+        "ext_sum_eta": (4, V, R), "ext_sum_lam": (4, 4, V, R),
+    }
+
+
+# --------------------------------------------------------------------------
+# layout: hot [c..., P, R] <-> rows [R, P, c...]
+# --------------------------------------------------------------------------
+
+def rows(x: torch.Tensor) -> torch.Tensor:
+    """Hot [c..., P, R] -> robot-major [R, P, c...] (a view)."""
+    n = x.ndim
+    return x.permute(n - 1, n - 2, *range(n - 2))
+
+
+def hot(x: torch.Tensor) -> torch.Tensor:
+    """Robot-major [R, P, c...] -> hot [c..., P, R], contiguous."""
+    n = x.ndim
+    return x.permute(*range(2, n), 1, 0).contiguous()
+
+
+def component_axes(name: str) -> int:
+    """How many trailing axes of a robot-major field are the components of
+    one vector (1) or 4x4 matrix (2); the axes before them index robots,
+    positions and factor slots."""
+    if name.endswith("_lam"):
+        return 2
+    if name.endswith(("_eta", "_mean", "_mu", "_pos")) or name in ("ext_inbox", "ir_f2v_ext"):
+        return 1
+    return 0
+
+
+#: a response is the belief less the incoming message, so its roundoff
+#: scales with that message, which may be far larger than the response
+RESPONSE_OPERAND = {"dyn_v2f_eta": "dyn_f2v_eta", "dyn_v2f_lam": "dyn_f2v_lam"}
+
+
+def scaled_error(
+    name: str, got: torch.Tensor, want: dict, hot_layout: bool = True
+) -> float:
+    """Largest error of field `name` of `got` against `want[name]` (hot
+    layout, or robot-major with `hot_layout=False`), each vector or matrix
+    over its own scale: max(|want| over its components, 1), and for a
+    response also the incoming message's (RESPONSE_OPERAND). Scaling per
+    (robot, position, slot) keeps the 1e30-pinned endpoint rows from setting
+    the scale of every interior entry: those rows are held to their own
+    relative error, the interior entries to theirs."""
+    refs = [want[name]]
+    if RESPONSE_OPERAND.get(name) in want:
+        refs.append(want[RESPONSE_OPERAND[name]])
+    if hot_layout:
+        got, refs = rows(got), [rows(r) for r in refs]
+    err = (got.double() - refs[0].double()).abs()
+    scale = torch.stack([r.double().abs() for r in refs]).amax(dim=0)
+    axes = tuple(range(err.ndim - component_axes(name), err.ndim))
+    if axes:
+        err, scale = err.amax(dim=axes), scale.amax(dim=axes)
+    return float((err / scale.clamp(min=1.0)).max()) if err.numel() else 0.0
+
+
+def _gate_rows(g: torch.Tensor) -> torch.Tensor:
+    return g[0] > 0
+
+
+def _select(gate: torch.Tensor, new: torch.Tensor, old: torch.Tensor) -> torch.Tensor:
+    return torch.where(gate.reshape(gate.shape + (1,) * (new.ndim - 1)), new, old)
+
+
+# --------------------------------------------------------------------------
+# plain PyTorch versions
+# --------------------------------------------------------------------------
+
+def _variable_pass(h: dict, gate, dyn_eta, dyn_lam, int_eta, int_lam):
+    """Belief update on robot-major tensors: prior + external sum + dynamic
+    messages (slot 0 then slot 1) + the interior obstacle+tracking message,
+    summed in the order the kernels add them, then the guarded inverse."""
+    eta = rows(h["prior_sigma"])[..., None] * rows(h["prior_mean"]) + rows(h["ext_sum_eta"])
+    eye = torch.eye(4, dtype=eta.dtype, device=eta.device)
+    lam = rows(h["prior_sigma"])[..., None, None] * eye + rows(h["ext_sum_lam"])
+    eta = eta + VU.pad_vars(dyn_eta[:, :, 0], 0, 1) + VU.pad_vars(dyn_eta[:, :, 1], 1, 0)
+    lam = lam + VU.pad_vars(dyn_lam[:, :, 0], 0, 1) + VU.pad_vars(dyn_lam[:, :, 1], 1, 0)
+    if int_eta.shape[1] > 0:
+        eta = eta + VU.pad_vars(int_eta, 1, 1)
+        lam = lam + VU.pad_vars(int_lam, 1, 1)
+    upd = VU.update_beliefs(eta, lam, rows(h["belief_mean"]))
+    return (
+        _select(gate, upd.eta, rows(h["belief_eta"])),
+        _select(gate, upd.lam, rows(h["belief_lam"])),
+        _select(gate, upd.mean, rows(h["belief_mean"])),
+    )
+
+
+def internal_slot_reference(h: dict, p: SlotParams) -> dict:
+    """The internal slot in plain PyTorch, on the same hot dict as the kernel:
+    the port's factor functions and belief update on robot-major views."""
+    f = h["belief_eta"].dtype
+    V = p.n_vars
+    gate = _gate_rows(h["gate"])
+    tgate = _gate_rows(h["tgate"])
+
+    dyn_eta, dyn_lam = rows(h["dyn_f2v_eta"]), rows(h["dyn_f2v_lam"])
+    if p.dynamic_enabled:
+        e, l = F.dynamic_factor_messages(
+            rows(h["dyn_v2f_eta"]), rows(h["dyn_v2f_lam"]), rows(h["dyn_v2f_mu"]),
+            rows(h["delta_t"]), p.sigma_dynamics, dtype=f,
+        )
+        dyn_eta, dyn_lam = _select(gate, e, dyn_eta), _select(gate, l, dyn_lam)
+
+    obs_eta, obs_lam = rows(h["obs_f2v_eta"]), rows(h["obs_f2v_lam"])
+    if p.obstacle_enabled and V > 2:
+        e, l = F.obstacle_messages_from_taps(
+            rows(h["obs_h0"]), rows(h["obs_hx"]), rows(h["obs_hy"]),
+            rows(h["obs_v2f_mu"]), p.obstacle_delta, p.sigma_obstacle, dtype=f,
+        )
+        obs_eta, obs_lam = _select(gate, e, obs_eta), _select(gate, l, obs_lam)
+
+    trk_eta, trk_lam = rows(h["trk_f2v_eta"]), rows(h["trk_f2v_lam"])
+    record, timeout = rows(h["trk_record"]), rows(h["trk_timeout"])
+    last_pos, last_val = rows(h["trk_last_pos"]), rows(h["trk_last_val"])
+    if p.tracking_enabled and V > 2:
+        path = torch.stack([rows(h["path_x"]), rows(h["path_y"])], dim=-1)  # [R, W, 2]
+        plen = h["path_len"][0]
+        e, l, new_rec, new_to, mp, h0, skipped = F.tracking_factor_messages(
+            rows(h["trk_v2f_mu"]), path, plen, record, torch.zeros_like(plen), timeout,
+            p.switch_padding, p.attraction_distance, p.sigma_tracking, dtype=f,
+        )
+        measured = tgate[:, None] & ~skipped
+        trk_eta, trk_lam = _select(tgate, e, trk_eta), _select(tgate, l, trk_lam)
+        record = _select(tgate, new_rec, record)
+        timeout = _select(tgate, new_to, timeout)
+        last_pos = torch.where(measured[..., None], mp, last_pos)
+        last_val = torch.where(measured, h0, last_val)
+
+    b_eta, b_lam, b_mean = _variable_pass(
+        h, gate, dyn_eta, dyn_lam, obs_eta + trk_eta, obs_lam + trk_lam
+    )
+
+    out = {
+        "belief_eta": b_eta, "belief_lam": b_lam, "belief_mean": b_mean,
+        "snap_eta": b_eta, "snap_lam": b_lam, "snap_mu": b_mean,
+        "dyn_v2f_eta": rows(h["dyn_v2f_eta"]), "dyn_v2f_lam": rows(h["dyn_v2f_lam"]),
+        "dyn_v2f_mu": rows(h["dyn_v2f_mu"]),
+        "dyn_f2v_eta": dyn_eta, "dyn_f2v_lam": dyn_lam,
+        "obs_v2f_mu": rows(h["obs_v2f_mu"]), "obs_f2v_eta": obs_eta, "obs_f2v_lam": obs_lam,
+        "trk_v2f_mu": rows(h["trk_v2f_mu"]), "trk_f2v_eta": trk_eta, "trk_f2v_lam": trk_lam,
+        "trk_record": record, "trk_timeout": timeout,
+        "trk_last_pos": last_pos, "trk_last_val": last_val,
+    }
+    if p.dynamic_enabled:
+        # responses: dyn edge e slot 0 <- var e, slot 1 <- var e+1
+        v_eta = torch.stack([b_eta[:, :-1], b_eta[:, 1:]], dim=2)
+        v_lam = torch.stack([b_lam[:, :-1], b_lam[:, 1:]], dim=2)
+        v_mu = torch.stack([b_mean[:, :-1], b_mean[:, 1:]], dim=2)
+        out["dyn_v2f_eta"] = _select(gate, v_eta - dyn_eta, out["dyn_v2f_eta"])
+        out["dyn_v2f_lam"] = _select(gate, v_lam - dyn_lam, out["dyn_v2f_lam"])
+        out["dyn_v2f_mu"] = _select(gate, v_mu, out["dyn_v2f_mu"])
+    interior_mean = b_mean[:, 1 : V - 1]
+    if p.obstacle_enabled:
+        out["obs_v2f_mu"] = _select(gate, interior_mean, out["obs_v2f_mu"])
+    if p.tracking_enabled:
+        out["trk_v2f_mu"] = _select(gate, interior_mean, out["trk_v2f_mu"])
+    return {name: hot(x) for name, x in out.items()}
+
+
+def variable_slot_reference(h: dict, p: SlotParams) -> dict:
+    """The external slot's belief update in plain PyTorch, on the hot dict."""
+    b_eta, b_lam, b_mean = _variable_pass(
+        h, _gate_rows(h["gate"]),
+        rows(h["dyn_f2v_eta"]), rows(h["dyn_f2v_lam"]),
+        rows(h["obs_f2v_eta"]) + rows(h["trk_f2v_eta"]),
+        rows(h["obs_f2v_lam"]) + rows(h["trk_f2v_lam"]),
+    )
+    return {"belief_eta": hot(b_eta), "belief_lam": hot(b_lam), "belief_mean": hot(b_mean)}
+
+
+# --------------------------------------------------------------------------
+# wrappers
+# --------------------------------------------------------------------------
+
+_LIB: ctypes.CDLL | None = None
+
+
+def _lib() -> ctypes.CDLL:
+    """The kernel library, built and bound on first use."""
+    global _LIB
+    if _LIB is None:
+        from magics_tpu_torch.kernels.build import load
+
+        lib = load("gbp_slot")
+        ptrs = ctypes.POINTER(ctypes.c_void_p)
+        floats = ctypes.POINTER(ctypes.c_float)
+        ints = ctypes.POINTER(ctypes.c_int)
+        c_int = ctypes.c_int
+        lib.gbp_internal_slot.argtypes = [
+            ptrs, ptrs, c_int, c_int, c_int, floats, ints, ctypes.c_void_p
+        ]
+        lib.gbp_internal_slot.restype = c_int
+        lib.gbp_variable_slot.argtypes = [
+            ptrs, ptrs, c_int, c_int, floats, ints, ctypes.c_void_p
+        ]
+        lib.gbp_variable_slot.restype = c_int
+        for fn in ("gbp_slot_in_fields", "gbp_slot_out_fields",
+                   "gbp_variable_in_fields", "gbp_variable_out_fields"):
+            getattr(lib, fn).argtypes = []
+            getattr(lib, fn).restype = c_int
+        counts = (
+            lib.gbp_slot_in_fields(), lib.gbp_slot_out_fields(),
+            lib.gbp_variable_in_fields(), lib.gbp_variable_out_fields(),
+        )
+        expected = (len(_IN_FIELDS), len(_OUT_FIELDS), len(_VAR_IN_FIELDS), len(_VAR_OUT_FIELDS))
+        if counts != expected:
+            raise RuntimeError(f"kernel field counts {counts} != {expected}")
+        _LIB = lib
+    return _LIB
+
+
+def _checked_inputs(h: dict, names, V: int, W: int) -> tuple[list[torch.Tensor], int]:
+    """The kernel's inputs in order, after checking device, dtype, shape and
+    contiguity; returns them with R."""
+    R = h["gate"].shape[-1]
+    device = h["gate"].device
+    shapes = field_shapes(V, R, W)
+    ins = []
+    for name in names:
+        x = h[name]
+        want = torch.int32 if name in _INT_FIELDS else torch.float32
+        if x.device != device:
+            raise ValueError(f"{name} is on {x.device}, gate on {device}")
+        if x.dtype != want:
+            raise TypeError(f"{name} is {x.dtype}; the kernel takes {want}")
+        if tuple(x.shape) != shapes[name]:
+            raise ValueError(f"{name} has shape {tuple(x.shape)}, expected {shapes[name]}")
+        if not x.is_contiguous():
+            raise ValueError(f"{name} is not contiguous")
+        ins.append(x)
+    return ins, R
+
+
+def _scalars(p: SlotParams):
+    inv_s2 = 1.0 / (p.sigma_dynamics * p.sigma_dynamics)
+    f = (ctypes.c_float * 9)(
+        12.0 * inv_s2, -6.0 * inv_s2, 4.0 * inv_s2,
+        p.obstacle_delta, 1.0 / (p.sigma_obstacle * p.sigma_obstacle),
+        1.0 / (p.sigma_tracking * p.sigma_tracking),
+        p.switch_padding, p.switch_padding * 0.01, p.attraction_distance,
+    )
+    flags = (ctypes.c_int * 3)(
+        int(p.dynamic_enabled), int(p.obstacle_enabled), int(p.tracking_enabled)
+    )
+    return f, flags
+
+
+def _ptrs(tensors) -> ctypes.Array:
+    return (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
+
+
+def _check_launch(rc: int, name: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed: cudaError {rc}")
+
+
+def _device_kind(h: dict) -> str:
+    dev = h["gate"].device
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"no slot kernel for device {dev}")
+    return dev.type
+
+
+def internal_slot(h: dict, p: SlotParams) -> dict:
+    """Run the internal slot: the CUDA kernel on CUDA tensors, the plain
+    version on CPU tensors. `h` maps _IN_FIELDS to hot-layout tensors;
+    returns a dict of _OUT_FIELDS (fresh tensors)."""
+    if _device_kind(h) == "cpu":
+        return internal_slot_reference(h, p)
+    V, W = p.n_vars, p.max_waypoints
+    if V < 3:
+        raise ValueError(f"the slot kernel needs V >= 3, got {V}")
+    ins, R = _checked_inputs(h, _IN_FIELDS, V, W)
+    shapes = field_shapes(V, R, W)
+    outs = [
+        torch.empty(
+            shapes[n], device=ins[0].device,
+            dtype=torch.int32 if n in _INT_FIELDS else torch.float32,
+        )
+        for n in _OUT_FIELDS
+    ]
+    f, flags = _scalars(p)
+    stream = torch.cuda.current_stream(ins[0].device).cuda_stream
+    rc = _lib().gbp_internal_slot(_ptrs(ins), _ptrs(outs), R, V, W, f, flags, stream)
+    _check_launch(rc, "internal_slot")
+    launch_counts["internal_slot"] += 1
+    return dict(zip(_OUT_FIELDS, outs))
+
+
+def variable_slot(h: dict, p: SlotParams) -> dict:
+    """Run the external slot's belief update: the CUDA kernel on CUDA
+    tensors, the plain version on CPU tensors. `h` maps _VAR_IN_FIELDS to
+    hot-layout tensors; returns a dict of _VAR_OUT_FIELDS (fresh tensors)."""
+    if _device_kind(h) == "cpu":
+        return variable_slot_reference(h, p)
+    V = p.n_vars
+    if V < 3:
+        raise ValueError(f"the slot kernel needs V >= 3, got {V}")
+    ins, R = _checked_inputs(h, _VAR_IN_FIELDS, V, p.max_waypoints)
+    outs = [
+        torch.empty(field_shapes(V, R, 0)[n], device=ins[0].device, dtype=torch.float32)
+        for n in _VAR_OUT_FIELDS
+    ]
+    f, flags = _scalars(p)
+    stream = torch.cuda.current_stream(ins[0].device).cuda_stream
+    rc = _lib().gbp_variable_slot(_ptrs(ins), _ptrs(outs), R, V, f, flags, stream)
+    _check_launch(rc, "variable_slot")
+    launch_counts["variable_slot"] += 1
+    return dict(zip(_VAR_OUT_FIELDS, outs))
