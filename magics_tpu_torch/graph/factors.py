@@ -2,16 +2,23 @@
 graph/factors.py, whose docstrings derive the maths).
 
 Each function updates all factors of one kind for all robots as dense tensor
-ops. Only what the main path runs is here: the dynamic, obstacle ("gather"
-taps) and tracking messages, and the receiver-computes compact inter-robot
-exchange with its rank-1 helpers.
+ops: the dynamic, obstacle ("gather" taps) and tracking messages, the
+inter-robot messages of the three exchanges (the dense 8x8 form, the rank-1
+form of "sender" and "receiver", the compact form of "receiver_compact")
+and the rank-1 helpers.
 """
 
 from __future__ import annotations
 
 import torch
 
-from magics_tpu_torch.core.linalg import inv4_rowscaled, mm, mtm, mv
+from magics_tpu_torch.core.linalg import (
+    inv4_rowscaled,
+    marginalize_two_block,
+    mm,
+    mtm,
+    mv,
+)
 
 
 def _eye2(dtype, device):
@@ -150,6 +157,144 @@ def obstacle_messages_from_taps(
     return eta_f, lam_f
 
 
+def _interrobot_measurement(
+    d_raw: torch.Tensor,            # [..., 2] internal minus external position
+    safety_distance: torch.Tensor,  # [...]
+    tiny_offset: torch.Tensor,      # [...]
+    dtype: torch.dtype,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The inter-robot measurement shared by every exchange
+    (interrobot.rs:40-237): the skip flag (raw squared distance >= d_safe^2,
+    interrobot.rs:213-226), h0 = 1 - r/d_safe within the safety distance
+    (else 0) and J's position block g on the internal variable, with r taken
+    from d_raw plus the per-factor tiny offset (interrobot.rs:91-106).
+    Returns (skipped, h0, g [..., 2])."""
+    dist2_raw = (d_raw * d_raw).sum(dim=-1)
+    skipped = dist2_raw >= safety_distance * safety_distance
+
+    diff = d_raw + tiny_offset[..., None]
+    r = torch.sqrt((diff * diff).sum(dim=-1))
+    within = r <= safety_distance
+
+    h0 = torch.where(within, 1.0 - r / safety_distance, torch.zeros_like(r)).to(dtype)
+    safe_r = torch.where(r > 0, r, torch.ones_like(r))
+    g2 = torch.where(
+        within[..., None],
+        -diff / (safety_distance[..., None] * safe_r[..., None]),
+        torch.zeros_like(diff),
+    ).to(dtype)
+    return skipped, h0, g2
+
+
+def interrobot_factor_messages(
+    x_int: torch.Tensor,        # [..., 4] linearisation mean of the internal variable
+    x_ext: torch.Tensor,        # [..., 4] linearisation mean of the external variable
+    v2f_int_eta: torch.Tensor,  # [..., 4]
+    v2f_int_lam: torch.Tensor,  # [..., 4, 4]
+    v2f_ext_eta: torch.Tensor,  # [..., 4]
+    v2f_ext_lam: torch.Tensor,  # [..., 4, 4]
+    safety_distance: torch.Tensor,  # [...]
+    tiny_offset: torch.Tensor,      # [...]
+    sigma: float,
+    dtype: torch.dtype = torch.float32,
+) -> tuple[torch.Tensor, ...]:
+    """Messages from all inter-robot collision factors in the dense 8x8 form
+    (magics_tpu factors.py:interrobot_factor_messages): the potential
+    J^T Lam_m J with J = [g, 0, -g, 0] over (internal, external), each edge's
+    message the two-block Schur marginal with the other edge's cavity added.
+    Skipped factors emit empty messages.
+
+    Returns (f2v_int_eta, f2v_int_lam, f2v_ext_eta, f2v_ext_lam, skipped).
+    The exchanges send only the external message, in the rank-1 form below;
+    this form is the reference the tests hold that one against."""
+    skipped, h0, g = _interrobot_measurement(
+        x_int[..., :2] - x_ext[..., :2], safety_distance, tiny_offset, dtype
+    )
+    zero2 = torch.zeros_like(g)
+    J = torch.cat([g, zero2, -g, zero2], dim=-1)  # [..., 8]
+
+    lam_m = 1.0 / (sigma * sigma)
+    x0 = torch.cat([x_int, x_ext], dim=-1).to(dtype)
+    jx0 = (J * x0).sum(dim=-1)
+    eta_f = J * (lam_m * (jx0 - h0))[..., None]
+    lam_f = lam_m * J[..., :, None] * J[..., None, :]
+
+    laa, lab = lam_f[..., :4, :4], lam_f[..., :4, 4:]
+    lba, lbb = lam_f[..., 4:, :4], lam_f[..., 4:, 4:]
+    eta_a, eta_b = eta_f[..., :4], eta_f[..., 4:]
+
+    # message to the internal variable (block a); other edge = external
+    int_eta, int_lam, _ = marginalize_two_block(
+        eta_a, eta_b + v2f_ext_eta, laa, lab, lba, lbb + v2f_ext_lam
+    )
+    # message to the external variable (block b); other edge = internal
+    ext_eta, ext_lam, _ = marginalize_two_block(
+        eta_b, eta_a + v2f_int_eta, lbb, lba, lab, laa + v2f_int_lam
+    )
+
+    keep = ~skipped
+    k1, k2 = keep[..., None], keep[..., None, None]
+    return (
+        torch.where(k1, int_eta, torch.zeros_like(int_eta)),
+        torch.where(k2, int_lam, torch.zeros_like(int_lam)),
+        torch.where(k1, ext_eta, torch.zeros_like(ext_eta)),
+        torch.where(k2, ext_lam, torch.zeros_like(ext_lam)),
+        skipped,
+    )
+
+
+def interrobot_rank1_messages(
+    x_int: torch.Tensor,        # [..., 4] internal linearisation mean (snap mu)
+    p_ext: torch.Tensor,        # [..., 2] external variable position
+    cav_eta: torch.Tensor,      # [..., 4] internal cavity (snap eta where seeded)
+    cav_lam: torch.Tensor,      # [..., 4, 4] internal cavity precision
+    safety_distance: torch.Tensor,  # [...]
+    tiny_offset: torch.Tensor,      # [...]
+    sigma: float,
+    dtype: torch.dtype = torch.float32,
+) -> torch.Tensor:
+    """Message from each inter-robot factor to its external variable in
+    compact rank-1 form [..., (gx, gy, t, s)], eta = g t, lam = s g g^T
+    (magics_tpu factors.py:interrobot_rank1_messages, which derives it):
+
+        M = alpha g g^T + cavity,  q = g^T M^-1 g,
+        w = g^T M^-1 (alpha g (J x0 - h) + cav_eta),
+        s = alpha (1 - alpha q),   t = alpha (w - (J x0 - h))
+
+    Empty on a singular (|det| <= 1e-6 after row scaling), non-finite,
+    insane or negligible marginal and on the skip condition. An empty entry
+    is a select, not a product with the validity mask: an unseeded cavity
+    with g = 0 makes M = 0 and its inverse 0/0, and the JAX function, whose
+    jit turns `x * valid` into a select, emits 0 there too."""
+    d_raw = x_int[..., :2] - p_ext
+    skipped, h0, g2 = _interrobot_measurement(d_raw, safety_distance, tiny_offset, dtype)
+
+    alpha = 1.0 / (sigma * sigma)
+    # J x0 = g . p_int - g . p_ext (the velocity columns of J are zero)
+    jx0 = (g2 * d_raw.to(dtype)).sum(dim=-1)
+    resid = jx0 - h0
+
+    g4 = torch.cat([g2, torch.zeros_like(g2)], dim=-1)
+    M = alpha * g4[..., :, None] * g4[..., None, :] + cav_lam
+    M_inv, det = inv4_rowscaled(M)
+    Mg = mv(M_inv, g4)
+    q = (g4 * Mg).sum(dim=-1)
+    w = (Mg * (alpha * resid[..., None] * g4 + cav_eta)).sum(dim=-1)
+
+    s = alpha * (1.0 - alpha * q)
+    t = alpha * (w - resid)
+
+    gmax2 = g2.abs().amax(dim=-1) ** 2
+    finite = torch.isfinite(s) & torch.isfinite(t)
+    sane = s.abs() * gmax2 <= 4.0 * alpha * gmax2 + 1.0
+    rtol = 1e-4 if dtype == torch.float32 else 1e-12
+    negligible = s.abs() * gmax2 <= rtol * alpha * gmax2
+    valid = (det.abs() > 1e-6) & finite & sane & ~negligible & ~skipped
+
+    msg = torch.stack([g2[..., 0], g2[..., 1], t, s], dim=-1)
+    return torch.where(valid[..., None], msg, torch.zeros_like(msg))
+
+
 def compact_snap_tables(
     snap_mu: torch.Tensor,   # [R, V, 4]
     snap_eta: torch.Tensor,  # [R, V, 4]
@@ -200,20 +345,7 @@ def interrobot_rank1_messages_compact(
     cav_valid = (tables[..., 7] > 0.5) & seeded
 
     d_raw = snap_pos - p_ext
-    dist2_raw = (d_raw * d_raw).sum(dim=-1)
-    skipped = dist2_raw >= safety_distance * safety_distance
-
-    diff = d_raw + tiny_offset[..., None]
-    r = torch.sqrt((diff * diff).sum(dim=-1))
-    within = r <= safety_distance
-
-    h0 = torch.where(within, 1.0 - r / safety_distance, torch.zeros_like(r)).to(dtype)
-    safe_r = torch.where(r > 0, r, torch.ones_like(r))
-    g2 = torch.where(
-        within[..., None],
-        -diff / (safety_distance[..., None] * safe_r[..., None]),
-        torch.zeros_like(diff),
-    ).to(dtype)
+    skipped, h0, g2 = _interrobot_measurement(d_raw, safety_distance, tiny_offset, dtype)
 
     alpha = 1.0 / (sigma * sigma)
     jx0 = (g2 * d_raw.to(dtype)).sum(dim=-1)

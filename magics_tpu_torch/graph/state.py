@@ -73,7 +73,7 @@ class GbpParams:
     dtype: torch.dtype = torch.float32
 
     # "sender" | "receiver" | "receiver_compact" (magics_tpu graph/state.py);
-    # the port carries "receiver_compact" only so far.
+    # the port carries all three.
     ext_exchange: str = "sender"
 
     # Run the internal/external slot belief updates through the hand-written

@@ -7,12 +7,14 @@ Everything is dense and masked, as plain functions on tensors; each returns a
 new `SimState` and leaves its input untouched (fields it changes are fresh
 tensors).
 
-The port carries the main path: dense connectivity and collisions, the
-"receiver_compact" inter-robot exchange, and an unrolled schedule. The
-per-system functions implement the receiver-computes semantics of the JAX
-package's `ext_exchange != "sender"` branches; `step` and `iterate_gbp`
-refuse every other configuration with NotImplementedError naming the ROADMAP
-item that ports it.
+The port carries dense connectivity and collisions, an unrolled schedule,
+and all three inter-robot exchanges of the JAX package, branch for branch:
+"sender" (the reference's routing: each factor owner computes its outbox,
+receivers gather it by (peer, reciprocal slot)), "receiver" and
+"receiver_compact" (each receiver recomputes its incoming messages from the
+peers' gathered snapshot tables and local mirrors). `step` and
+`iterate_gbp` refuse the grid path, `scan_schedule` and the collision event
+records with NotImplementedError naming the ROADMAP item that ports each.
 """
 
 from __future__ import annotations
@@ -26,6 +28,8 @@ from magics_tpu_torch.core.linalg import inv4_rowscaled
 from magics_tpu_torch.graph import factors as F
 from magics_tpu_torch.graph import variables as VU
 from magics_tpu_torch.graph.state import GbpParams, SimState
+from magics_tpu_torch.kernels import ir_slot as IR
+from magics_tpu_torch.kernels.layout import gather_rows
 from magics_tpu_torch.parallel.comm import LOCAL
 
 
@@ -69,6 +73,38 @@ def compute_back_slots(nbr_idx: torch.Tensor, nbr_mask: torch.Tensor, comm=LOCAL
     back = eq.to(torch.uint8).argmax(dim=-1).to(torch.int32)
     has_back = eq.any(dim=-1) & nbr_mask
     return back, has_back
+
+
+def _gather_from_peer(arr: torch.Tensor, nbr_idx, back, mask) -> torch.Tensor:
+    """out[r, k, ...] = arr[nbr_idx[r,k], back[r,k], ...], 0 where ~mask.
+    `arr` must be a GLOBAL [R_total, K, ...] tensor (comm.all_robots'd).
+    One row gather (K4, kernels/layout.py) of the flattened [R*K, ...]
+    table, where the JAX package pins XLA's layout around the same gather."""
+    R, K = arr.shape[:2]
+    idx = _clip_idx(nbr_idx, R) * K + _clip_idx(back, K)
+    return _gather_rows_pinned(arr.reshape(R * K, *arr.shape[2:]), idx, mask)
+
+
+def _gather_robot(arr: torch.Tensor, nbr_idx, mask) -> torch.Tensor:
+    """out[r, k, ...] = arr[nbr_idx[r,k], ...], 0 where ~mask.
+    `arr` must be a GLOBAL [R_total, ...] tensor (comm.all_robots'd). Plain
+    indexing: the JAX package pins no layout around the gathers of
+    connectivity and the horizon; the exchanges' gathers go through
+    `_gather_rows_pinned`."""
+    out = arr[_clip_idx(nbr_idx, arr.shape[0])]
+    return torch.where(_exp(mask, out.ndim - 2), out, torch.zeros_like(out))
+
+
+def _gather_rows_pinned(arr: torch.Tensor, idx: torch.Tensor, mask=None) -> torch.Tensor:
+    """out[r, k, ...] = arr[idx[r, k], ...], 0 where `mask` [r, k] is false:
+    one row gather (K4, kernels/layout.py) of `arr` flattened to rows, at
+    each site where the JAX package pins XLA's layout around the gather.
+    `idx` is clipped by the caller."""
+    out = gather_rows(
+        arr.reshape(arr.shape[0], -1).contiguous(), idx.reshape(-1).long(),
+        None if mask is None else mask.reshape(-1),
+    )
+    return out.reshape(idx.shape + arr.shape[1:])
 
 
 # --------------------------------------------------------------------------
@@ -200,11 +236,11 @@ def update_connectivity(state: SimState, params: GbpParams, comm=LOCAL) -> SimSt
     n_new = new_pair.sum(dim=1)
     n_free = (~keep).sum(dim=1)
     dropped = comm.psum(torch.clamp(n_new - n_free, min=0).sum())
-    return _finish_connectivity(state, keep, nbr_idx_new, comm, dropped)
+    return _finish_connectivity(state, params, keep, nbr_idx_new, comm, dropped)
 
 
 def _finish_connectivity(
-    state: SimState, keep: torch.Tensor, nbr_idx_new: torch.Tensor,
+    state: SimState, params: GbpParams, keep: torch.Tensor, nbr_idx_new: torch.Tensor,
     comm, dropped: torch.Tensor,
 ) -> SimState:
     """Shared connectivity tail: reciprocity, message-state reset for churned
@@ -224,10 +260,18 @@ def _finish_connectivity(
     ir_v2f_ext_pos = reset(state.ir_v2f_ext_pos)
     seeded = torch.where(slot_reset[..., None], False, state.ir_int_seeded)
 
-    # receiver-computes mirror: the PEER's new factor was seeded with MY
-    # current belief position, so the mirror write is local
-    own_pos = state.belief_mean[:, None, 1:, :2]
-    ir_v2f_ext_pos = torch.where(_exp(is_new, 2), own_pos, ir_v2f_ext_pos)
+    # seed new factors' external linearisation point with the neighbour's
+    # current belief position (robot.rs:1556-1566); variables 1..V-1 map to
+    # chain slots 0..V-2
+    if params.ext_exchange != "sender":
+        # receiver-computes mirror: the PEER's new factor was seeded with MY
+        # current belief position, so the mirror write is local
+        ext_pos = state.belief_mean[:, None, 1:, :2]
+    else:
+        ext_pos = _gather_robot(
+            comm.all_robots(state.belief_mean[..., :2]), nbr_idx_new, is_new
+        )[:, :, 1:, :]
+    ir_v2f_ext_pos = torch.where(_exp(is_new, 2), ext_pos, ir_v2f_ext_pos)
 
     K = nbr_idx_new.shape[1]
     mask_all = comm.all_robots(mask_new)
@@ -287,19 +331,32 @@ def update_prior_horizon(state: SimState, params: GbpParams, comm=LOCAL) -> SimS
     h_lam = state.belief_lam[:, V - 1]
     hor, last_edge = (slice(None), V - 1), (slice(None), V - 2, 1)
 
-    # receiver-computes mirrors (magics_tpu state.py): the PEER's factor
-    # received MY new horizon mean, and the PEER's seeded flag for its slot
-    # V-2 went true where ITS gate held
     gate_all = comm.all_robots(gate)
     src = _clip_idx(state.nbr_idx, gate_all.shape[0])
     seeded = state.ir_int_seeded.clone()
-    seeded[:, :, V - 2] |= gate_all[src] & state.nbr_has_back
     ir_v2f_ext_pos = state.ir_v2f_ext_pos.clone()
-    ir_v2f_ext_pos[:, :, V - 2] = torch.where(
-        (gate[:, None] & state.nbr_has_back)[..., None],
-        new_mean[:, None, :2],
-        state.ir_v2f_ext_pos[:, :, V - 2],
-    )
+    if params.ext_exchange != "sender":
+        # receiver-computes mirrors (magics_tpu state.py): the PEER's factor
+        # received MY new horizon mean, and the PEER's seeded flag for its
+        # slot V-2 went true where ITS gate held
+        seeded[:, :, V - 2] |= gate_all[src] & state.nbr_has_back
+        ir_v2f_ext_pos[:, :, V - 2] = torch.where(
+            (gate[:, None] & state.nbr_has_back)[..., None],
+            new_mean[:, None, :2],
+            state.ir_v2f_ext_pos[:, :, V - 2],
+        )
+    else:
+        seeded[:, :, V - 2] = torch.where(
+            gate[:, None], state.nbr_mask, state.ir_int_seeded[:, :, V - 2]
+        )
+        # responses to external factors (ungated receive, robot.rs:2272-2282):
+        # the factor owned by (r, k) at chain slot V-2 has j = nbr_idx[r, k]'s
+        # horizon variable as its external variable
+        sent = gate_all[src] & state.nbr_mask
+        ir_v2f_ext_pos[:, :, V - 2] = torch.where(
+            sent[..., None], comm.all_robots(new_mean)[src][..., :2],
+            state.ir_v2f_ext_pos[:, :, V - 2],
+        )
 
     return replace(
         state,
@@ -412,9 +469,13 @@ def internal_factor_pass(state: SimState, sdf: torch.Tensor, params: GbpParams) 
     return replace(state, **updates)
 
 
-def _seed_mirror(state: SimState, gate: torch.Tensor, comm=LOCAL) -> torch.Tensor:
-    """Receiver-computes mirror of the PEER's seeded flag: the peer's cavity
-    for its reciprocal slot went live where ITS internal gate held."""
+def seed_cavities(state: SimState, params: GbpParams, gate: torch.Tensor, comm=LOCAL) -> torch.Tensor:
+    """`ir_int_seeded` after an internal variable pass under `gate`. Under
+    "sender" a robot's own cavities of its live slots go live where its gate
+    held; under the receiver exchanges the flag mirrors the PEER's: the
+    peer's cavity for its reciprocal slot went live where ITS gate held."""
+    if params.ext_exchange == "sender":
+        return state.ir_int_seeded | (gate[:, None] & state.nbr_mask)[..., None]
     gate_all = comm.all_robots(gate)
     src = _clip_idx(state.nbr_idx, gate_all.shape[0])
     return state.ir_int_seeded | (gate_all[src] & state.nbr_has_back)[..., None]
@@ -464,18 +525,21 @@ def internal_variable_pass(state: SimState, params: GbpParams, comm=LOCAL) -> Si
     updates["snap_lam"] = _where_rows(gate, belief_lam, state.snap_lam)
     updates["snap_mu"] = _where_rows(gate, belief_mean, state.snap_mu)
     if params.interrobot_enabled:
-        updates["ir_int_seeded"] = _seed_mirror(state, gate, comm)
+        updates["ir_int_seeded"] = seed_cavities(state, params, gate, comm)
     return replace(state, **updates)
 
 
 def _external_factor_pass_receiver(
     state: SimState, params: GbpParams, comm=LOCAL
 ) -> SimState:
-    """Receiver-computes inter-robot exchange, "receiver_compact": each
-    receiver recomputes its incoming messages from the peers' compact cavity
-    tables [R, V-1, 8] (a plain row gather of a contiguous table), the mirror
-    of its own positions as held by the peer, and slot-deterministic tiny
-    offsets (magics_tpu tick.py:_external_factor_pass_receiver)."""
+    """Receiver-computes inter-robot exchange (magics_tpu
+    tick.py:_external_factor_pass_receiver): each receiver recomputes its
+    incoming messages from a row gather of the peers' snapshot tables, the
+    mirror of its own positions as held by the peer, and slot-deterministic
+    tiny offsets. "receiver" gathers the [R, V-1, 24] snapshot pack and runs
+    the sender's rank-1 maths on it (the same arithmetic, so the same
+    inboxes); "receiver_compact" gathers the compact cavity tables
+    [R, V-1, 8] (Sherman-Morrison, equal to roundoff)."""
     R, K = state.nbr_idx.shape
     V1 = state.prior_mean.shape[1] - 1
     f = state.prior_mean.dtype
@@ -494,13 +558,29 @@ def _external_factor_pass_receiver(
     rad_all = comm.all_robots(state.radius)
     safety = (params.safety_distance_multiplier * rad_all[src])[..., None].expand(R, K, V1)
 
-    tables = F.compact_snap_tables(state.snap_mu, state.snap_eta, state.snap_lam, dtype=f)
-    tables_all = comm.all_robots(tables).reshape(-1, V1 * 8)
-    peer_tab = tables_all.index_select(0, src.reshape(-1)).reshape(R, K, V1, 8)
-    msg = F.interrobot_rank1_messages_compact(
-        peer_tab, state.ir_int_seeded, state.ir_v2f_ext_pos, safety, tiny,
-        params.sigma_factor_interrobot, dtype=f,
-    )
+    seeded = state.ir_int_seeded      # mirror: the peer's cavity is present
+    p_ext = state.ir_v2f_ext_pos      # mirror: my position as held by the peer
+    if params.ext_exchange == "receiver_compact":
+        tables = F.compact_snap_tables(state.snap_mu, state.snap_eta, state.snap_lam, dtype=f)
+        tables_all = comm.all_robots(tables).reshape(-1, V1 * 8)
+        peer_tab = _gather_rows_pinned(tables_all, src).reshape(R, K, V1, 8)
+        msg = F.interrobot_rank1_messages_compact(
+            peer_tab, seeded, p_ext, safety, tiny, params.sigma_factor_interrobot, dtype=f,
+        )
+    else:
+        pack = torch.cat(
+            [state.snap_mu[:, 1:], state.snap_eta[:, 1:], state.snap_lam[:, 1:].reshape(R, V1, 16)],
+            dim=-1,
+        )  # [R, V1, 24]
+        pack_all = comm.all_robots(pack).reshape(-1, V1 * 24)
+        peer = _gather_rows_pinned(pack_all, src).reshape(R, K, V1, 24)
+        s3 = seeded[..., None]
+        x_int = torch.where(s3, peer[..., 0:4], 0.0)
+        cav_eta = torch.where(s3, peer[..., 4:8], 0.0)
+        cav_lam = torch.where(s3[..., None], peer[..., 8:24].reshape(R, K, V1, 4, 4), 0.0)
+        msg = F.interrobot_rank1_messages(
+            x_int, p_ext, cav_eta, cav_lam, safety, tiny, params.sigma_factor_interrobot, dtype=f,
+        )
     return replace(
         state,
         ext_inbox=torch.where(deliver[..., None, None], msg, state.ext_inbox),
@@ -509,17 +589,51 @@ def _external_factor_pass_receiver(
 
 
 def external_factor_pass(state: SimState, params: GbpParams, comm=LOCAL) -> SimState:
-    """Inter-robot factor update + message delivery (factorgraph.rs:719-760),
-    receiver-computes."""
+    """Inter-robot factor update + message delivery (factorgraph.rs:719-760,
+    routing robot.rs:1803-1831). Messages are compact rank-1.
+
+    "sender": each robot computes the outbox `ir_f2v_ext` of its own
+    factors (with `use_pallas` in the kernel of kernels/ir_slot.py), and
+    each receiver gathers its inbox from the peers' outboxes by (peer,
+    reciprocal slot). The receiver exchanges recompute instead
+    (`_external_factor_pass_receiver`)."""
     if not params.interrobot_enabled:
         return state
-    return _external_factor_pass_receiver(state, params, comm)
+    if params.ext_exchange != "sender":
+        return _external_factor_pass_receiver(state, params, comm)
+
+    send_gate = state.active & state.antenna & _not_idle(state)  # [R]
+    inputs = IR.sender_inputs(state, params, comm)
+    sigma = params.sigma_factor_interrobot
+    if params.use_pallas:
+        msg = IR.interrobot_slot(**inputs, sigma=sigma)
+    else:
+        msg = IR.interrobot_slot_reference(**inputs, sigma=sigma)  # [R, K, V-1, 4]
+
+    produced = send_gate[:, None] & state.nbr_mask
+    ir_f2v_ext = torch.where(produced[..., None, None], msg, state.ir_f2v_ext)
+
+    # delivery: r's inbox slot (r, k, i) receives from the factor owned by
+    # j = nbr_idx[r, k] at its reciprocal slot, where j produced this pass
+    # and r's antenna and mission gate hold
+    send_gate_all = comm.all_robots(send_gate)
+    src = _clip_idx(state.nbr_idx, send_gate_all.shape[0])
+    deliver = send_gate[:, None] & state.nbr_mask & send_gate_all[src] & state.nbr_has_back
+    in_msg = _gather_from_peer(
+        comm.all_robots(ir_f2v_ext), state.nbr_idx, state.nbr_back, state.nbr_mask
+    )
+    return replace(
+        state,
+        ir_f2v_ext=ir_f2v_ext,
+        ext_inbox=torch.where(deliver[..., None, None], in_msg, state.ext_inbox),
+        iter_count_factor=state.iter_count_factor + send_gate.to(torch.int32),
+    )
 
 
 def external_variable_pass(state: SimState, params: GbpParams, comm=LOCAL) -> SimState:
-    """Belief update + responses to external factors (factorgraph.rs:794-826).
-    Under receiver-computes the response is the mirror write of MY new belief
-    positions under the (symmetric) delivery mask: no gather."""
+    """Belief update + responses to external factors (factorgraph.rs:794-826,
+    routing robot.rs:1843-1858). The factor uses only the response's mean
+    position (`deliver_responses`)."""
     if not params.interrobot_enabled:
         return state
 
@@ -538,21 +652,29 @@ def external_variable_pass(state: SimState, params: GbpParams, comm=LOCAL) -> Si
         belief_eta=_where_rows(gate, upd.eta, state.belief_eta),
         belief_lam=_where_rows(gate, upd.lam, state.belief_lam),
         belief_mean=belief_mean,
-        ir_v2f_ext_pos=_mirror_positions(state, gate, belief_mean[:, 1:, :2], comm),
+        ir_v2f_ext_pos=deliver_responses(state, params, gate, belief_mean[:, 1:, :2], comm),
     )
 
 
-def _mirror_positions(
-    state: SimState, gate: torch.Tensor, own_pos: torch.Tensor, comm=LOCAL
+def deliver_responses(
+    state: SimState, params: GbpParams, gate: torch.Tensor, own_pos: torch.Tensor,
+    comm=LOCAL,
 ) -> torch.Tensor:
-    """The receiver-computes response delivery: where this pass's delivery
-    condition holds (gate[r] & gate[j] & both slots alive, symmetric in
-    (r, j)), the mirror of what the peer holds becomes MY belief positions
-    own_pos [R, V-1, 2]."""
+    """`ir_v2f_ext_pos` after the external variable pass under `gate`, with
+    own_pos [R, V-1, 2] the new belief positions. The delivery condition
+    gate[r] & gate[j] & both slots alive is symmetric in (r, j). Under
+    "sender" the factor (r, k) receives j = nbr_idx[r, k]'s positions, one
+    row gather (K4) of the same positions for every reciprocal slot; under
+    the receiver exchanges the mirror of what the peer holds becomes MY
+    positions, with no gather."""
     gate_all = comm.all_robots(gate)
     src = _clip_idx(state.nbr_idx, gate_all.shape[0])
     deliver = gate[:, None] & state.nbr_mask & gate_all[src] & state.nbr_has_back
-    return torch.where(deliver[..., None, None], own_pos[:, None], state.ir_v2f_ext_pos)
+    if params.ext_exchange != "sender":
+        in_pos = own_pos[:, None]
+    else:
+        in_pos = _gather_rows_pinned(comm.all_robots(own_pos), src, state.nbr_mask)
+    return torch.where(deliver[..., None, None], in_pos, state.ir_v2f_ext_pos)
 
 
 def iterate_gbp(state: SimState, sdf: torch.Tensor, params: GbpParams, comm=LOCAL) -> SimState:
@@ -751,11 +873,8 @@ def log_positions(state: SimState, params: GbpParams) -> SimState:
 def _require_ported(params: GbpParams) -> None:
     """Refuse the configurations the port does not carry yet, naming the
     ROADMAP item that ports each."""
-    if params.ext_exchange != "receiver_compact":
-        raise NotImplementedError(
-            "only ext_exchange='receiver_compact' is ported; the 'sender' and "
-            "'receiver' exchanges are ROADMAP Queue 1 item 9"
-        )
+    if params.ext_exchange not in ("sender", "receiver", "receiver_compact"):
+        raise ValueError(f"unknown ext_exchange {params.ext_exchange!r}")
     if params.use_grid:
         raise NotImplementedError(
             "grid connectivity/collisions (grid_cell_size > 0) are not ported; "

@@ -2,10 +2,11 @@
 
 The sources under `csrc/` have a plain C interface, so a build is one nvcc
 call of a few seconds (PyTorch's `cpp_extension.load`, which compiles
-against PyTorch's headers, takes minutes). The library is keyed by a hash of
-the sources and flags and lives in `_build/` beside this file, which
-`.gitignore` lists; a later call in the same checkout reuses it. Nothing is
-built or loaded when this module is imported.
+against PyTorch's headers, takes minutes). Each library is keyed by a hash
+of all the sources (the `.cuh` headers included) and the flags, and lives
+in `_build/` beside this file, which `.gitignore` lists; a later call in the
+same checkout reuses it. `build_all` starts one nvcc per source at once.
+Nothing is built or loaded when this module is imported.
 """
 
 from __future__ import annotations
@@ -20,6 +21,9 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
+
+#: the kernel libraries, one per csrc/<name>.cu
+SOURCES = ("gbp_slot", "ir_slot", "layout")
 
 # --fmad=false: see the rounding note at the top of csrc/gbp_slot.cu.
 NVCC_FLAGS = (
@@ -50,25 +54,39 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
-def build(name: str) -> Path:
-    """Compile csrc/<name>.cu into a shared library unless it is built.
-    The ptxas report (registers, spills) is kept in a `.log` beside it."""
-    lib = library_path(name)
-    if lib.exists():
-        return lib
+def build_all(names=SOURCES) -> dict[str, Path]:
+    """Compile each csrc/<name>.cu that is not built yet into a shared
+    library, one nvcc per source, all started together. The ptxas report
+    (registers, spills) is kept in a `.log` beside each library. Waits for
+    every nvcc it started, then raises if any failed."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
-        )
-    lib.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    os.replace(tmp, lib)
-    return lib
+    jobs = []
+    try:
+        for name in names:
+            lib = library_path(name)
+            if lib.exists():
+                continue
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+            os.close(fd)
+            cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
+            proc = subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True
+            )
+            jobs.append((proc, cmd, tmp, lib))
+    finally:
+        results = [(proc.communicate(), proc.returncode, cmd, tmp, lib)
+                   for proc, cmd, tmp, lib in jobs]
+    failures = []
+    for (out, err), rc, cmd, tmp, lib in results:
+        if rc != 0:
+            os.unlink(tmp)
+            failures.append(f"nvcc failed ({rc}): {' '.join(cmd)}\n{out}{err}")
+            continue
+        lib.with_suffix(".log").write_text(out + err)
+        os.replace(tmp, lib)
+    if failures:
+        raise RuntimeError("\n".join(failures))
+    return {name: library_path(name) for name in names}
 
 
 def ptxas_report(name: str) -> str:
@@ -80,5 +98,5 @@ def ptxas_report(name: str) -> str:
 def load(name: str) -> ctypes.CDLL:
     """Build (if needed) and load csrc/<name>.cu, once per process."""
     if name not in _loaded:
-        _loaded[name] = ctypes.CDLL(str(build(name)))
+        _loaded[name] = ctypes.CDLL(str(build_all([name])[name]))
     return _loaded[name]

@@ -5,8 +5,10 @@
 kernels (kernels/gbp_slot.py) see every field as a [c..., P, R] plane stack.
 The state is transposed into this layout once per tick; every internal slot
 is one `internal_slot` launch (plus the SDF taps, plain indexing); every
-external slot runs the plain external factor pass on the normal layout and
-then one `variable_slot` launch; the state is transposed back at the end.
+external slot runs the external factor pass on the normal layout (under
+"sender" one `interrobot_slot` launch and one row gather), then one
+`variable_slot` launch and the response delivery (under "sender" one row
+gather); the state is transposed back at the end.
 The kernels mask the ragged robot edge themselves, so nothing is padded.
 """
 
@@ -147,12 +149,12 @@ def iterate_gbp_hot(
             )
             h = {**h, **outs}
             ic = ic + gate_r.to(torch.int32)
-            # the internal variable pass also seeds the peers' mirrors of
-            # this robot's inter-robot cavities (tick.internal_variable_pass)
+            # the internal variable pass also seeds the inter-robot cavities
+            # (tick.internal_variable_pass)
             if params.interrobot_enabled:
-                st = replace(st, ir_int_seeded=T._seed_mirror(st, gate_r, comm))
+                st = replace(st, ir_int_seeded=T.seed_cavities(st, params, gate_r, comm))
         if e_flag and params.interrobot_enabled:
-            # external factor pass: plain, on the normal layout
+            # external factor pass on the normal layout (tick.external_factor_pass)
             st = replace(_snap_to_state(st, h), iter_count_factor=ic)
             st = T.external_factor_pass(st, params, comm)
             ic = st.iter_count_factor
@@ -170,11 +172,12 @@ def iterate_gbp_hot(
                 sp,
             )
             h = {**h, **outs}
-            # response delivery: the receiver-computes mirror write of MY
-            # new belief positions (tick.external_variable_pass)
+            # response delivery (tick.external_variable_pass): under "sender"
+            # a row gather of the peers' new belief positions (K4)
             own_pos = rows(h["belief_mean"])[:, 1:, :2]
             st = replace(
-                st, ir_v2f_ext_pos=T._mirror_positions(st, ext_gate_r, own_pos, comm)
+                st,
+                ir_v2f_ext_pos=T.deliver_responses(st, params, ext_gate_r, own_pos, comm),
             )
 
     return merge_state(st, h, ic)

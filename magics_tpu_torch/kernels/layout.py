@@ -1,0 +1,115 @@
+"""Row gather of a contiguous table by index: the hand-written CUDA kernel
+(csrc/layout.cu), its plain PyTorch version and the wrapper.
+
+Counterpart of magics_tpu's kernels/layout.py (`layout_pin`, a Pallas
+identity copy that pins XLA's row-major layout around the row gathers of
+the inter-robot exchanges on the TPU). A CUDA tensor has no layout to pin,
+so the port's kernel is the gather those call sites make:
+
+    out[m, :] = table[idx[m], :], and 0 where mask[m] is false.
+
+It serves every call site of `layout_pin`, all through
+`tick._gather_rows_pinned`: the sender's delivery (`tick._gather_from_peer`)
+and response gather (`tick.deliver_responses`) and the receiver exchanges'
+table gathers, whatever `use_pallas` says (on the TPU the pin runs on every
+run too). The callers clip the indexes, as the JAX call sites do.
+
+On CUDA tensors the wrapper checks device, dtype, shape and contiguity,
+allocates a fresh output, launches the kernel on the current stream and
+adds one to `launch_counts`; it raises on anything the kernel does not take
+and on a failed launch. On CPU tensors it runs the plain version.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+#: kernel launches since the last `reset_launch_counts()`
+launch_counts = {"gather_rows": 0}
+
+
+def reset_launch_counts() -> None:
+    for name in launch_counts:
+        launch_counts[name] = 0
+
+
+def gather_rows_reference(
+    table: torch.Tensor, idx: torch.Tensor, mask: torch.Tensor | None = None
+) -> torch.Tensor:
+    """The plain version: `table.index_select(0, idx)`, zeroed where
+    `mask` is false."""
+    out = table.index_select(0, idx)
+    if mask is not None:
+        out = torch.where(mask[:, None], out, torch.zeros_like(out))
+    return out
+
+
+_LIB: ctypes.CDLL | None = None
+
+
+def _lib() -> ctypes.CDLL:
+    """The kernel library, built and bound on first use."""
+    global _LIB
+    if _LIB is None:
+        from magics_tpu_torch.kernels.build import load
+
+        lib = load("layout")
+        ptr, i64 = ctypes.c_void_p, ctypes.c_longlong
+        lib.gather_rows.argtypes = [ptr, ptr, ptr, ptr, i64, i64, ptr]
+        lib.gather_rows.restype = ctypes.c_int
+        lib.gather_rows_word_bytes.argtypes = [ptr, ptr, i64]
+        lib.gather_rows_word_bytes.restype = ctypes.c_int
+        _LIB = lib
+    return _LIB
+
+
+def _check(table: torch.Tensor, idx: torch.Tensor, mask: torch.Tensor | None) -> None:
+    if table.ndim != 2:
+        raise ValueError(f"table must be 2-D [n, m], got shape {tuple(table.shape)}")
+    if idx.ndim != 1 or idx.dtype != torch.int64:
+        raise TypeError(f"idx must be 1-D int64, got {idx.dtype} {tuple(idx.shape)}")
+    if mask is not None and (mask.dtype != torch.bool or tuple(mask.shape) != tuple(idx.shape)):
+        raise TypeError(f"mask must be bool {tuple(idx.shape)}, got {mask.dtype} {tuple(mask.shape)}")
+    for name, x in (("idx", idx), ("mask", mask)):
+        if x is not None and x.device != table.device:
+            raise ValueError(f"{name} is on {x.device}, table on {table.device}")
+    if table.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"no gather kernel for device {table.device}")
+
+
+def gather_rows(
+    table: torch.Tensor, idx: torch.Tensor, mask: torch.Tensor | None = None
+) -> torch.Tensor:
+    """out[m] = table[idx[m]] (0 where `mask[m]` is false): the CUDA kernel
+    on CUDA tensors, the plain version on CPU tensors. `table` [n, m] of any
+    dtype, `idx` [M] int64 in [0, n), `mask` [M] bool or None; returns a
+    fresh [M, m] tensor."""
+    _check(table, idx, mask)
+    if table.device.type == "cpu":
+        return gather_rows_reference(table, idx, mask)
+    for name, x in (("table", table), ("idx", idx), ("mask", mask)):
+        if x is not None and not x.is_contiguous():
+            raise ValueError(f"{name} is not contiguous")
+    out = torch.empty((idx.shape[0], table.shape[1]), dtype=table.dtype, device=table.device)
+    if out.numel() == 0:
+        return out
+    stream = torch.cuda.current_stream(table.device).cuda_stream
+    rc = _lib().gather_rows(
+        table.data_ptr(), idx.data_ptr(), None if mask is None else mask.data_ptr(),
+        out.data_ptr(), idx.shape[0], table.shape[1] * table.element_size(), stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"gather_rows kernel launch failed: cudaError {rc}")
+    launch_counts["gather_rows"] += 1
+    return out
+
+
+def word_bytes(table: torch.Tensor, out: torch.Tensor) -> int:
+    """The word size in bytes the kernel copies `table`'s rows into `out`
+    with: 16 where both row starts and the row size allow it, else less.
+    The card tests read it to check which copy path a shape takes."""
+    return _lib().gather_rows_word_bytes(
+        table.data_ptr(), out.data_ptr(), table.shape[1] * table.element_size()
+    )

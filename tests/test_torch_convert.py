@@ -1,7 +1,7 @@
 """The state and parameter bridge (magics_tpu_torch/convert.py), the port's
-scenario builder against magics_tpu's, the port's independence from JAX, and
-the configurations the port does not carry yet (they raise
-NotImplementedError)."""
+scenario builder against magics_tpu's, the port's independence from JAX, the
+sender and receiver exchanges running, and the configurations the port does
+not carry yet (they raise NotImplementedError)."""
 
 from __future__ import annotations
 
@@ -103,10 +103,6 @@ def test_port_imports_no_jax():
 
 
 UNPORTED = {
-    "sender": dict(ext_exchange="sender"),
-    "receiver": dict(ext_exchange="receiver"),
-    "sender_hot": dict(ext_exchange="sender", use_pallas=True),
-    "receiver_hot": dict(ext_exchange="receiver", use_pallas=True),
     "grid": dict(ext_exchange="receiver_compact", grid_cell_size=15.0),
     "scan_schedule": dict(ext_exchange="receiver_compact", scan_schedule=True),
     "collision_log": dict(ext_exchange="receiver_compact", collision_log_capacity=8),
@@ -119,6 +115,28 @@ def test_unported_configurations_raise(config):
     params, state, sdf = TB.build_scenario(specs, **_kw(torch.float32, **UNPORTED[config]))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TT.run_ticks(state, sdf, params, 2)
+
+
+EXCHANGES = {
+    "sender": dict(ext_exchange="sender"),
+    "receiver": dict(ext_exchange="receiver"),
+    "sender_hot": dict(ext_exchange="sender", use_pallas=True),
+    "receiver_hot": dict(ext_exchange="receiver", use_pallas=True),
+}
+
+
+@pytest.mark.parametrize("config", sorted(EXCHANGES))
+def test_exchange_configurations_run(config):
+    """The sender and plain receiver exchanges, plain and hot: 2 ticks leave
+    a finite state in which the robots moved."""
+    specs = TB.circle_formation(6, circle_radius=5.0, target_speed=8.0)
+    params, state, sdf = TB.build_scenario(specs, **_kw(torch.float32, **EXCHANGES[config]))
+    out = TT.run_ticks(state, sdf, params, 2)
+    for name, x in convert.state_to_numpy(out).items():
+        if x.dtype.kind == "f":
+            assert np.isfinite(x).all(), name
+    assert np.abs(out.pos.numpy() - state.pos.numpy()).max() > 0.1
+    assert bool(out.nbr_mask.any())
 
 
 def test_comms_failure_needs_a_generator_and_uses_it():

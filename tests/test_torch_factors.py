@@ -211,3 +211,78 @@ def test_rank1_sum(rank1_msgs, axis):
     got_t = TF.rank1_sum(_t(rank1_msgs), dim=axis)
     for a, b in zip(got_j, got_t):
         _close(a, b.numpy())
+
+
+@pytest.fixture(scope="module")
+def interrobot_inputs():
+    """Inter-robot factors [R, K, V1] around the safety distance: live
+    pairs, skipped ones (raw distance past the safety distance), unseeded
+    internal cavities (zero), near-singular ones (precision on the velocity
+    only, plus a 1e-9 position trace) and an endpoint pinned at 1e30."""
+    rng = np.random.default_rng(6)
+    R, K, V1 = 5, 4, 6
+    shape = (R, K, V1)
+    x_int = rng.normal(scale=3.0, size=shape + (4,))
+    x_ext = x_int + rng.normal(scale=2.5, size=shape + (4,))
+    safety = np.full(shape, 4.4)
+    tiny = 1e-6 * (np.arange(R * K * V1).reshape(shape) + 1.0)
+    cav_eta = rng.normal(size=shape + (4,))
+    cav_lam = _psd(rng, shape, scale=2.0) + 0.05 * np.eye(4)
+    cav_lam[0] = 0.0
+    cav_eta[0] = 0.0
+    near = np.zeros((4, 4))
+    near[2:, 2:] = np.eye(2)
+    near[:2, :2] = 1e-9 * np.eye(2)
+    cav_lam[1, :2] = near
+    cav_lam[2, 0, -1] += 1e30 * np.eye(4)
+    ext_eta = rng.normal(size=shape + (4,))
+    ext_lam = _psd(rng, shape, scale=2.0) + 0.05 * np.eye(4)
+    return dict(
+        x_int=x_int, x_ext=x_ext, cav_eta=cav_eta, cav_lam=cav_lam,
+        ext_eta=ext_eta, ext_lam=ext_lam, safety=safety, tiny=tiny,
+    )
+
+
+def _dense_args(d):
+    return (d["x_int"], d["x_ext"], d["cav_eta"], d["cav_lam"], d["ext_eta"],
+            d["ext_lam"], d["safety"], d["tiny"])
+
+
+def _rank1_args(d):
+    return (d["x_int"], d["x_ext"][..., :2], d["cav_eta"], d["cav_lam"], d["safety"], d["tiny"])
+
+
+def test_interrobot_factor_messages(interrobot_inputs):
+    args = _dense_args(interrobot_inputs)
+    fj = jax.jit(partial(JF.interrobot_factor_messages, sigma=0.5, dtype=jnp.float64))
+    got_j = fj(*map(jnp.asarray, args))
+    got_t = TF.interrobot_factor_messages(*map(_t, args), sigma=0.5, dtype=torch.float64)
+    for a, b in zip(got_j, got_t):
+        _close(a, b.numpy())
+    skipped = np.asarray(got_j[4])
+    assert skipped.any() and not skipped.all()
+
+
+def test_interrobot_rank1_messages(interrobot_inputs):
+    args = _rank1_args(interrobot_inputs)
+    fj = jax.jit(partial(JF.interrobot_rank1_messages, sigma=0.5, dtype=jnp.float64))
+    got_j = np.asarray(fj(*map(jnp.asarray, args)))
+    got_t = TF.interrobot_rank1_messages(*map(_t, args), sigma=0.5, dtype=torch.float64)
+    _close(got_j, got_t.numpy())
+    np.testing.assert_array_equal(got_j == 0, got_t.numpy() == 0)
+    live = got_j[..., 3] != 0
+    assert live.any() and not live[0].any() and not live[1, :2].any()
+
+
+def test_rank1_form_is_the_dense_external_message(interrobot_inputs):
+    """The rank-1 message (g t, s g g^T) is the dense 8x8 form's message to
+    the external variable, guards included (both port functions)."""
+    d = interrobot_inputs
+    msg = TF.interrobot_rank1_messages(*map(_t, _rank1_args(d)), sigma=0.5, dtype=torch.float64)
+    _, _, ext_eta, ext_lam, _ = TF.interrobot_factor_messages(
+        *map(_t, _dense_args(d)), sigma=0.5, dtype=torch.float64
+    )
+    eta, lam = TF.rank1_eta_lam(msg)
+    _close(ext_eta.numpy(), eta.numpy())
+    _close(ext_lam.numpy(), lam.numpy())
+    np.testing.assert_array_equal((ext_lam == 0).all(-1).all(-1).numpy(), (msg == 0).all(-1).numpy())

@@ -1,15 +1,16 @@
-"""The port's CUDA slot kernels against their plain PyTorch versions, on the
+"""The port's CUDA kernels against their plain PyTorch versions, on the
 card. Every test here needs an NVIDIA GPU (Hopper, sm_90a) and skips where
 `torch.cuda.is_available()` is false; run them on the card with
 
     python -m pytest tests/test_torch_kernels_cuda.py -q
 
 Inputs: a small converging crossing (R=37, so the robot edge is ragged
-against the kernels' 16-robot tiles) after a few plain ticks, with SDF taps
-from a non-trivial SDF; for tracking also a multi-segment corner route.
-Tolerance: each vector or matrix of each field within RTOL of its own scale
-(`gbp_slot.scaled_error`; float32 roundoff in another summation order,
-chip_smoke.py states why).
+against the kernels' 16-robot tiles and 128-thread blocks) after a few plain
+ticks, with SDF taps from a non-trivial SDF; for tracking also a
+multi-segment corner route; for the inter-robot message table the crossing
+in "sender" mode. Tolerance: each vector or matrix of each field within
+RTOL of its own scale (`gbp_slot.scaled_error`; float32 roundoff in another
+summation order, chip_smoke.py states why); the row gather bit for bit.
 """
 
 from __future__ import annotations
@@ -25,11 +26,15 @@ from magics_tpu_torch.graph import factors as F
 from magics_tpu_torch.graph import tick as T
 from magics_tpu_torch.kernels import gbp_slot as G
 from magics_tpu_torch.kernels import hot as HOT
+from magics_tpu_torch.kernels import ir_slot as IR
+from magics_tpu_torch.kernels import layout as L
 from magics_tpu_torch.sim.builder import build_scenario, circle_formation
 
 pytestmark = pytest.mark.cuda
 
 RTOL = 1e-4
+# share of the message table's entries whose guards may decide differently
+MAX_FLIP_SHARE = 1e-3
 
 
 @pytest.fixture(scope="module")
@@ -39,19 +44,24 @@ def device():
     return torch.device("cuda", 0)
 
 
-def make_slot_inputs(device):
-    """Hot slot inputs of a 37-robot crossing after 12 plain ticks, and the
-    slot parameters."""
+def crossing(device, exchange="receiver_compact"):
+    """A converging 37-robot crossing, float32: (params, state, sdf)."""
     specs = circle_formation(37, circle_radius=30.0, target_speed=15.0)
     for i, s in enumerate(specs):
         s.start[:2] *= 1.0 + 0.01 * i
         s.waypoints[0, :2] *= 1.0 + 0.01 * i
-    params, state, sdf = build_scenario(
+    return build_scenario(
         specs, target_speed=15.0, planning_horizon=3.0, hz=10.0, comms_radius=20.0,
         internal=4, external=2, schedule=ScheduleKind.INTERLEAVE_EVENLY, n_slots=8,
         world=(200.0, 200.0), sdf=np.ones((64, 64)), dtype=torch.float32,
-        device=device, ext_exchange="receiver_compact",
+        device=device, ext_exchange=exchange,
     )
+
+
+def make_slot_inputs(device):
+    """Hot slot inputs of a 37-robot crossing after 12 plain ticks, and the
+    slot parameters."""
+    params, state, sdf = crossing(device)
     state = T.run_ticks(state, sdf, params, 12)
     y, x = np.mgrid[0:64, 0:64] / 64
     sdf_obs = torch.as_tensor(
@@ -186,3 +196,99 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(slot_inputs, fault):
     with pytest.raises((TypeError, ValueError)):
         G.internal_slot(bad, sp)
     assert G.launch_counts["internal_slot"] == before
+
+
+@pytest.fixture(scope="module")
+def sender_inputs(device):
+    """The message table's inputs of the crossing in "sender" mode after 12
+    plain ticks, with the seeded flags of every third robot cleared on every
+    other variable (tests/test_ir_slot.py) so the empty-cavity guard runs."""
+    params, state, sdf = crossing(device, "sender")
+    state = T.run_ticks(state, sdf, params, 12)
+    inputs = IR.sender_inputs(state, params)
+    inputs["seeded"] = inputs["seeded"].clone()
+    inputs["seeded"][::3, :, ::2] = False
+    return inputs, params.sigma_factor_interrobot
+
+
+def test_interrobot_slot_kernel_matches_plain(sender_inputs):
+    inputs, sigma = sender_inputs
+    before = IR.launch_counts["interrobot_slot"]
+    got = IR.interrobot_slot(**inputs, sigma=sigma)
+    torch.cuda.synchronize()
+    assert IR.launch_counts["interrobot_slot"] == before + 1
+    want = IR.interrobot_slot_reference(**inputs, sigma=sigma)
+    assert got.shape == want.shape and got.dtype == want.dtype
+    assert bool(torch.isfinite(got).all())
+    live_got, live_want = (got != 0).any(dim=-1), (want != 0).any(dim=-1)
+    assert int(live_want.sum()) > 0                  # factors within the safety distance
+    assert int((live_got != live_want).sum()) <= MAX_FLIP_SHARE * live_want.numel()
+    both = live_got & live_want
+    scale = want.abs().amax(dim=-1).clamp(min=1.0)
+    assert float(((got - want).abs().amax(dim=-1) / scale)[both].max()) <= RTOL
+    unseeded = ~inputs["seeded"]
+    assert bool((got[unseeded] == 0).all())          # empty cavity, empty message
+
+
+@pytest.mark.parametrize("fault", ["dtype", "contiguity", "shape"])
+def test_interrobot_wrapper_refuses_what_the_kernel_does_not_take(sender_inputs, fault):
+    inputs, sigma = sender_inputs
+    x = inputs["p_ext"]
+    bad = {**inputs, "p_ext": {
+        "dtype": x.double(),
+        "contiguity": x.transpose(0, 1).contiguous().transpose(0, 1),
+        "shape": x[:, :, :-1],
+    }[fault]}
+    before = IR.launch_counts["interrobot_slot"]
+    with pytest.raises((TypeError, ValueError)):
+        IR.interrobot_slot(**bad, sigma=sigma)
+    assert IR.launch_counts["interrobot_slot"] == before
+
+
+@pytest.mark.parametrize(
+    "dtype, width, offset, word",
+    [
+        (torch.float32, 80, 0, 16),    # the sender delivery's rows (V1=20)
+        (torch.float32, 160, 0, 16),   # receiver_compact's table rows
+        (torch.float32, 480, 0, 16),   # the receiver pack's rows
+        (torch.float32, 3, 0, 4),      # 12-byte rows
+        (torch.float64, 5, 0, 8),      # 40-byte rows
+        (torch.float32, 4, 1, 4),      # 16-byte rows from a 4-byte aligned start
+        (torch.uint8, 13, 0, 1),
+        (torch.bool, 6, 0, 2),
+    ],
+)
+@pytest.mark.parametrize("masked", [False, True])
+def test_gather_rows_kernel_is_index_select(device, dtype, width, offset, word, masked):
+    g = torch.Generator(device=device).manual_seed(width)
+    n, m = 301, 977
+    flat = (torch.randn(n * width + offset, generator=g, device=device) * 100).to(dtype)
+    table = flat[offset:].view(n, width)
+    idx = torch.randint(0, n, (m,), generator=g, device=device)
+    mask = torch.rand(m, generator=g, device=device) > 0.4 if masked else None
+    before = L.launch_counts["gather_rows"]
+    got = L.gather_rows(table, idx, mask)
+    torch.cuda.synchronize()
+    assert L.launch_counts["gather_rows"] == before + 1
+    assert L.word_bytes(table, got) == word
+    assert got.dtype == dtype and torch.equal(got, L.gather_rows_reference(table, idx, mask))
+
+
+def test_sender_kernel_path_tracks_plain_path(device):
+    """12 ticks of the crossing in "sender" mode through the kernels against
+    the port's plain passes (which still gather through K4 on the card):
+    positions within chip_smoke.py's 0.1 m, and each external slot launches
+    one message table and two row gathers."""
+    from dataclasses import replace
+
+    params, state, sdf = crossing(device, "sender")
+    n_ext = sum(1 for _, e in params.schedule if e)
+    plain = T.run_ticks(state, sdf, params, 12)
+    before = (IR.launch_counts["interrobot_slot"], L.launch_counts["gather_rows"])
+    kern = T.run_ticks(state, sdf, replace(params, use_pallas=True), 12)
+    torch.cuda.synchronize()
+    assert IR.launch_counts["interrobot_slot"] - before[0] == 12 * n_ext
+    assert L.launch_counts["gather_rows"] - before[1] == 2 * 12 * n_ext
+    assert float((kern.pos - state.pos).abs().max()) > 1.0
+    assert float(kern.ext_inbox.abs().sum()) > 0.0
+    assert float((plain.pos - kern.pos).abs().max()) < 0.1

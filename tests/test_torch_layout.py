@@ -1,0 +1,108 @@
+"""The row gather (magics_tpu_torch/kernels/layout.py) and the tick's gather
+helpers built on it, against magics_tpu's `_gather_from_peer` and
+`_gather_rows_pinned` (their `layout_pin` is the identity on the CPU), on
+seeded tables with masked slots and indexes the callers must clip (-1 for a
+dead slot, and past the table's end). A gather moves values without
+arithmetic, so every comparison is bit-equal.
+"""
+
+from __future__ import annotations
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from magics_tpu.graph import tick as JT
+from magics_tpu_torch.graph import tick as TT
+from magics_tpu_torch.kernels import layout as L
+
+R, K, V1 = 9, 5, 7
+
+
+@pytest.fixture(scope="module")
+def tables():
+    rng = np.random.default_rng(5)
+    arr = rng.normal(size=(R, K, V1, 4))                  # an outbox [R, K, V-1, 4]
+    nbr_idx = rng.integers(-1, R + 3, size=(R, K)).astype(np.int32)
+    back = rng.integers(-2, K + 2, size=(R, K)).astype(np.int32)
+    mask = rng.random((R, K)) > 0.3
+    return arr, nbr_idx, back, mask
+
+
+def _t(x):
+    return torch.as_tensor(np.array(x))
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+def test_gather_from_peer_matches_jax(tables, dtype):
+    arr, nbr_idx, back, mask = tables
+    arr = arr.astype(dtype)
+    want = np.asarray(jax.jit(JT._gather_from_peer)(*map(jnp.asarray, (arr, nbr_idx, back, mask))))
+    got = TT._gather_from_peer(*map(_t, (arr, nbr_idx, back, mask))).numpy()
+    assert got.dtype == want.dtype
+    np.testing.assert_array_equal(got, want)
+    assert (got == 0).all(axis=(2, 3))[~mask].all() and (got != 0).any()
+
+
+def test_gather_rows_pinned_matches_jax(tables):
+    arr, nbr_idx, _, _ = tables
+    pack = arr.reshape(R, -1)                             # [R, K * V1 * 4]
+    src = np.clip(nbr_idx, 0, R - 1)                      # clipped by the caller
+    want = np.asarray(jax.jit(JT._gather_rows_pinned)(jnp.asarray(pack), jnp.asarray(src)))
+    got = TT._gather_rows_pinned(_t(pack), _t(src)).numpy()
+    np.testing.assert_array_equal(got, want)
+
+
+def test_gather_robot_matches_jax(tables):
+    """The per-robot gather the sender's seeding and horizon responses use
+    (plain indexing in both packages)."""
+    arr, nbr_idx, _, mask = tables
+    pos = arr[:, 0, :, :2]                                # [R, V1, 2]
+    args = (pos, nbr_idx, mask)
+    want = np.asarray(jax.jit(JT._gather_robot)(*map(jnp.asarray, args)))
+    np.testing.assert_array_equal(TT._gather_robot(*map(_t, args)).numpy(), want)
+
+
+@pytest.mark.parametrize(
+    "dtype, width",
+    [(torch.float32, 80), (torch.float32, 3), (torch.float64, 5), (torch.int32, 7),
+     (torch.bool, 6), (torch.uint8, 13)],
+)
+@pytest.mark.parametrize("masked", [False, True])
+def test_gather_rows_is_index_select(dtype, width, masked):
+    """Any dtype and row size, with and without a mask: the plain version
+    is `index_select`, zeroed where the mask is false."""
+    g = torch.Generator().manual_seed(width)
+    table = (torch.randn(11, width, generator=g) * 100).to(dtype)
+    idx = torch.randint(0, 11, (17,), generator=g)
+    mask = torch.rand(17, generator=g) > 0.4 if masked else None
+    out = L.gather_rows(table, idx, mask)
+    want = table.index_select(0, idx)
+    if masked:
+        want[~mask] = 0
+    assert out.dtype == dtype and torch.equal(out, want)
+    assert L.launch_counts["gather_rows"] == 0            # CPU: no kernel launch
+
+
+@pytest.mark.parametrize(
+    "bad",
+    ["idx_int32", "idx_2d", "table_1d", "mask_dtype", "mask_shape", "meta_device"],
+)
+def test_gather_rows_refuses_what_it_does_not_take(bad):
+    table, idx, mask = torch.zeros(4, 3), torch.zeros(5, dtype=torch.int64), None
+    if bad == "idx_int32":
+        idx = idx.int()
+    elif bad == "idx_2d":
+        idx = idx[:, None]
+    elif bad == "table_1d":
+        table = table[:, 0]
+    elif bad == "mask_dtype":
+        mask = torch.ones(5)
+    elif bad == "mask_shape":
+        mask = torch.ones(4, dtype=torch.bool)
+    else:
+        table, idx = table.to("meta"), idx.to("meta")
+    with pytest.raises((TypeError, ValueError)):
+        L.gather_rows(table, idx, mask)
