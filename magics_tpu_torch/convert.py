@@ -13,7 +13,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from magics_tpu_torch.graph.state import GbpParams, SimState
+from magics_tpu_torch.graph.state import GbpParams, SimState, require_device
 
 #: fields of magics_tpu's SimState that the port does not carry
 DROPPED_FIELDS = frozenset({"rng"})
@@ -32,11 +32,13 @@ def params_from_jax(params) -> GbpParams:
 
 
 def state_from_numpy(
-    arrays: dict[str, np.ndarray], device: torch.device | str = "cpu"
+    arrays: dict[str, np.ndarray], device: torch.device | str = "cuda"
 ) -> SimState:
-    """A SimState from a dict of numpy arrays keyed by field name (copied, so
-    the port never writes into the caller's buffers). `rng` is dropped; any
-    other missing or unknown field raises."""
+    """A SimState on `device` (the card unless the caller asks for the CPU;
+    without a card it raises) from a dict of numpy arrays keyed by field name
+    (copied, so the port never writes into the caller's buffers). `rng` is
+    dropped; any other missing or unknown field raises."""
+    device = require_device(device)
     names = {f.name for f in dataclasses.fields(SimState)}
     extra = set(arrays) - names - DROPPED_FIELDS
     missing = names - set(arrays)

@@ -279,7 +279,11 @@ def interrobot_rank1_messages(
     M_inv, det = inv4_rowscaled(M)
     Mg = mv(M_inv, g4)
     q = (g4 * Mg).sum(dim=-1)
-    w = (Mg * (alpha * resid[..., None] * g4 + cav_eta)).sum(dim=-1)
+    # w sums its four terms left to right, spelled out: a reduction's order
+    # is the backend's, and w cancels (ill-conditioned cavities), so its
+    # last bits would differ from one device to another
+    wt = Mg * (alpha * resid[..., None] * g4 + cav_eta)
+    w = ((wt[..., 0] + wt[..., 1]) + wt[..., 2]) + wt[..., 3]
 
     s = alpha * (1.0 - alpha * q)
     t = alpha * (w - resid)

@@ -20,13 +20,15 @@ import dataclasses
 import numpy as np
 import torch
 
-from magics_tpu.core.constants import DOFS
+from magics_tpu_torch.core.constants import DOFS
 
 
 @dataclasses.dataclass(frozen=True)
 class GbpParams:
     """Static per-scenario parameters (hashable). The same fields and
-    defaults as magics_tpu's `GbpParams`, with `dtype` a `torch.dtype`."""
+    defaults as magics_tpu's `GbpParams`, with `dtype` a `torch.dtype`, but
+    `use_pallas`, which defaults to None: the kernels on a CUDA state, the
+    plain passes on a CPU one."""
 
     n_vars: int  # V
     n_slots: int  # K
@@ -76,11 +78,13 @@ class GbpParams:
     # the port carries all three.
     ext_exchange: str = "sender"
 
-    # Run the internal/external slot belief updates through the hand-written
-    # kernels (kernels/gbp_slot.py) on the hot layout. `pallas_interpret` and
-    # `pallas_r_tile` keep the JAX field names; the port's kernels mask the
-    # ragged robot edge themselves and read neither.
-    use_pallas: bool = False
+    # Run the GBP slots through the hand-written kernels (kernels/hot.py)
+    # on the hot layout: True or False as asked, None (the default) for the
+    # kernels on a CUDA state and the plain passes on a CPU one
+    # (`uses_kernels`). `pallas_interpret` and `pallas_r_tile` keep the JAX
+    # field names; the port's kernels mask the ragged robot edge themselves
+    # and read neither.
+    use_pallas: bool | None = None
     pallas_interpret: bool = False
     pallas_r_tile: int = 128
 
@@ -90,6 +94,13 @@ class GbpParams:
     max_robot_radius: float = 1.0
 
     scan_schedule: bool = False
+
+    def uses_kernels(self, device: torch.device) -> bool:
+        """Whether the GBP slots of a state on `device` run through the
+        kernels: `use_pallas` where it was given, else on CUDA only."""
+        if self.use_pallas is None:
+            return device.type == "cuda"
+        return self.use_pallas
 
     @property
     def use_grid(self) -> bool:
@@ -209,6 +220,18 @@ class SimState:
         return self.pos.device
 
 
+def require_device(device: torch.device | str) -> torch.device:
+    """The device an entry point builds on. A CUDA device that is not there
+    raises: the entry points never carry on on the CPU unless asked to."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {device} asked for, but torch.cuda.is_available() is false; "
+            "pass device='cpu' to run on the CPU"
+        )
+    return device
+
+
 def init_state(
     params: GbpParams,
     *,
@@ -223,7 +246,7 @@ def init_state(
     wp_check_dist2: np.ndarray,    # [R]
     fin_check_var: np.ndarray,     # [R] i32
     fin_check_dist2: np.ndarray,   # [R]
-    device: torch.device | str = "cpu",
+    device: torch.device | str = "cuda",
     goal_areas: np.ndarray | None = None,  # [G, 4]
     plan_pending: np.ndarray | None = None,  # [R] bool
 ) -> SimState:
@@ -232,6 +255,7 @@ def init_state(
     horizon point, endpoint priors pinned at 1e30, interior priors zero, all
     messages empty except the tracking factors' initial v2f mean. The maths is
     numpy in float64; every field ends in `torch.as_tensor(..., device=)`."""
+    device = require_device(device)
     R, V, K, W = n_robots, params.n_vars, params.n_slots, params.max_waypoints
     f = params.dtype
     if variable_timesteps.shape[0] != V:

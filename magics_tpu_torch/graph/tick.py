@@ -23,7 +23,7 @@ from dataclasses import replace
 
 import torch
 
-from magics_tpu.core.constants import TRACKING_SKIP_FIRST_N_FACTOR_ITERS
+from magics_tpu_torch.core.constants import TRACKING_SKIP_FIRST_N_FACTOR_ITERS
 from magics_tpu_torch.core.linalg import inv4_rowscaled
 from magics_tpu_torch.graph import factors as F
 from magics_tpu_torch.graph import variables as VU
@@ -593,7 +593,8 @@ def external_factor_pass(state: SimState, params: GbpParams, comm=LOCAL) -> SimS
     routing robot.rs:1803-1831). Messages are compact rank-1.
 
     "sender": each robot computes the outbox `ir_f2v_ext` of its own
-    factors (with `use_pallas` in the kernel of kernels/ir_slot.py), and
+    factors (in the kernel of kernels/ir_slot.py where
+    `params.uses_kernels` holds: by default on CUDA), and
     each receiver gathers its inbox from the peers' outboxes by (peer,
     reciprocal slot). The receiver exchanges recompute instead
     (`_external_factor_pass_receiver`)."""
@@ -605,7 +606,7 @@ def external_factor_pass(state: SimState, params: GbpParams, comm=LOCAL) -> SimS
     send_gate = state.active & state.antenna & _not_idle(state)  # [R]
     inputs = IR.sender_inputs(state, params, comm)
     sigma = params.sigma_factor_interrobot
-    if params.use_pallas:
+    if params.uses_kernels(state.device):
         msg = IR.interrobot_slot(**inputs, sigma=sigma)
     else:
         msg = IR.interrobot_slot_reference(**inputs, sigma=sigma)  # [R, K, V-1, 4]
@@ -679,12 +680,13 @@ def deliver_responses(
 
 def iterate_gbp(state: SimState, sdf: torch.Tensor, params: GbpParams, comm=LOCAL) -> SimState:
     """`iterate_gbp_v2` (robot.rs:1769-1861): run the iteration schedule,
-    unrolled. With `use_pallas` the slots run on the hot layout through the
-    hand-written kernels (kernels/hot.py)."""
+    unrolled. Where `params.uses_kernels` holds (by default on CUDA) the
+    slots run on the hot layout through the hand-written kernels
+    (kernels/hot.py)."""
     _require_ported(params)
     if not params.schedule:
         return state
-    if params.use_pallas:
+    if params.uses_kernels(state.device):
         from magics_tpu_torch.kernels.hot import iterate_gbp_hot
 
         return iterate_gbp_hot(state, sdf, params, comm=comm)

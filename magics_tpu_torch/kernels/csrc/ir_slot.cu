@@ -15,24 +15,50 @@
 // [R, K, V1, 2], rows 1..V-1 of snap_mu / snap_eta [R, V, 4] and snap_lam
 // [R, V, 4, 4], safety [R] and the global ids [R]; it writes [R, K, V1, 4].
 //
-// Threads. One thread per (r, i), looping over the K slots: the cavity of
-// variable i+1 (snapshot mean, eta and the 4x4 precision, 22 floats) is
-// loaded once and shared by the K factors of that variable, as the Pallas
-// kernel reads one snapshot block for every k. An unseeded slot selects a
-// zero cavity. Neighbouring threads take neighbouring i, so a warp's
-// loads and its 16-byte stores per k fall on consecutive addresses.
-// ptxas (nvcc 12.9, sm_90a): 91 registers, no spills.
+// Threads (redesigned for this card). One thread per factor (r, k, i):
+// thread t = (r K + k) V1 + i of the table (655,360 at the bench shapes),
+// each writing its 16-byte message at out + 16 t, so a warp's stores and its
+// seeded / p_ext loads fall on consecutive addresses. A block covers part of
+// one robot's K V1 factors (blockIdx.x is the robot; at the bench shapes two
+// blocks of 320 threads a robot). Each thread first reads its slot's seeded
+// flag, the peer's position and its own snapshot position, and decides
+// whether the factor can give a message at all: an unseeded slot (empty
+// cavity, so M = alpha g g^T has rank 1 and det = 0) or a pair at or beyond
+// the safety distance gives an empty one whatever the inverse says, so it
+// writes zeros and stops. A block with no live factor stops there (on the
+// bench ring most do: 7,712 of 655,360 messages are live after 100 ticks).
+// Otherwise the factors of one chain position share their cavity (the
+// snapshot of variable i+1), as the Pallas kernel reads one snapshot block
+// for every k: the block reads the robot's snapshot rows once into shared
+// memory (coalesced 16-byte words, issued with the skip test's loads), and
+// its first V1 threads tabulate them with what of the inverse does not
+// depend on k. The measurement g = (gx, gy, 0, 0) only touches rows and columns 0-1
+// of M = alpha g g^T + cavity, so rows 2-3 of the row-scaled matrix, and
+// with them the six 2x2 minors of those rows, are the cavity's own; they
+// are computed once per (r, i) with the same operations the per-factor
+// inverse would use, so every factor gets the same bits. Only columns 0-1
+// of M^-1 are formed: M^-1 g needs no others (g's last two entries are 0;
+// the plain version would also empty a message whose columns 2-3 overflow,
+// which needs a cavity row below ~1e-30, and a seeded cavity's velocity
+// rows carry the dynamics' precision). Shared memory, not L1, holds the
+// cavities: a warp's threads span 20 chain positions, so through L1 each
+// cavity load would touch ~10 cache lines a warp instruction against one
+// conflict-free wavefront from the component-major table here, and the
+// block shares the k-independent minors too. An L1 variant was not
+// measured.
 //
-// What bounds it on the H100. Per factor it reads 9 bytes (seeded, p_ext)
-// and writes 16; per variable it reads 88 bytes of cavity. At the bench
-// shapes (R=1024, K=32, V1=20, float32) that is 5.9 + 10.5 + 1.8 MB: 5.4 us
-// at 3.35 TB/s. The arithmetic is one row-scaled 4x4 inverse and a few dot
-// products per factor, some 400 flops: 0.26 GFLOP per launch, 3.9 us at
-// 67 TFLOP/s of float32. So bytes and flops bound it alike: about 5 us at
-// best. Speed is later work; this kernel
-// is the simple, right one: at the bench shapes its 20,480 threads (160
-// blocks, about one per SM) each run 32 dependent inverses, and it takes
-// 86 us on an H100 (torch.profiler).
+// What bounds it on the H100. Per factor it writes 16 bytes and reads its
+// seeded flag, and a seeded one also the peer's position (8 bytes); per
+// chain position the own position where a slot is seeded and the cavity
+// (80 bytes) where a factor is live. At the bench shapes (R=1024, K=32,
+// V1=20, float32) the writes alone are 10.5 MB, 3.1 us at 3.35 TB/s, and
+// every input in full 18.5 MB, 5.5 us; chip_smoke.py counts the bytes at its
+// run's inputs. The arithmetic of a live factor is a 4x4 determinant, two
+// columns of the adjugate, 13 divisions and a square root, some 250
+// operations: 0.16 GOP per launch if every factor were live (2.4 us at
+// 67 TFLOP/s of float32), far less on the main path. Bytes bound it. The
+// earlier design (one thread per (r, i) looping over the K slots, 20,480
+// threads) took 86 us on an H100 (torch.profiler).
 //
 // Maths and rounding. The guards are knife edges (|det| > 1e-6, sane,
 // negligible), so the float order is that of the plain version: the tiny
@@ -40,22 +66,30 @@
 // Pallas kernel compute it (in float32 at R=1024 the offset reaches ~0.65,
 // so its last bit decides ties); the constants alpha, 4 alpha and
 // rtol alpha rounded from double to float as PyTorch rounds a Python
-// scalar; and --fmad=false (kernels/build.py), so that no product is fused
-// into a sum. The 4-term dot products sum left to right, PyTorch's
-// reductions may not: kernel and plain version agree to float32 roundoff,
-// and chip_smoke.py counts the entries whose zero pattern flips. An entry
-// that fails a guard is a select of 0, not a product with the mask: the
-// empty cavity with g = 0 makes M = 0, which the shared inverse (inv4.cuh)
-// divides by 1 instead of 0.
+// scalar; the row-scaled cofactor inverse of core/linalg.py:inv4_rowscaled
+// term for term (inv4.cuh); and --fmad=false (kernels/build.py), so that no
+// product is fused into a sum. Of the dot products, M^-1 g and q have two
+// nonzero terms (g's last two entries are 0), and w's four terms sum left to
+// right here and in the plain version, which spells that order out: summed
+// by a PyTorch reduction, w's cancellation on ill-conditioned cavities put
+// the two versions 5.07e-5 of a message's scale apart on an H100. The
+// divisions and square root round correctly in both, so the two agree bit
+// for bit (measured on an H100); chip_smoke.py states the tolerance it
+// allows and counts the entries whose zero pattern flips.
+// An entry that fails a guard is a select of 0, not a product with the
+// mask, and a zero determinant divides by 1 instead of 0.
 
 #include <cuda_runtime.h>
 #include <math.h>
 
-#include "inv4.cuh"
-
 namespace {
 
-constexpr int kThreads = 128;
+constexpr int kMaxThreads = 512;
+
+// The per-(robot, chain position) cavity table in shared memory, component-
+// major [kCav][V1]: eta, rows 0-1 of the precision, and the six 2x2 minors of
+// rows 2-3 of the row-scaled precision.
+enum Cav { C_ETA, C_LAM01 = C_ETA + 4, C_MINOR = C_LAM01 + 8, kCav = C_MINOR + 6 };
 
 struct IrArgs {
   const unsigned char* seeded;  // [R, K, V1] bool
@@ -70,99 +104,183 @@ struct IrArgs {
   float alpha, four_alpha, rtol_alpha;
 };
 
-__global__ void __launch_bounds__(kThreads) interrobot_slot_kernel(IrArgs A) {
-  const int V1 = A.V - 1;
-  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= (long long)A.R * V1) return;
-  const int r = static_cast<int>(t / V1);
-  const int i = static_cast<int>(t - (long long)r * V1);
+// Row 2 or 3 of the cavity precision scaled by its largest entry, as
+// inv4_rowscaled scales a row of M (those rows of M are the cavity's).
+__device__ __forceinline__ void scaled_row(const float* lam, float a[4]) {
+  const float rm = fmaxf(fmaxf(fabsf(lam[0]), fabsf(lam[1])), fmaxf(fabsf(lam[2]), fabsf(lam[3])));
+  const float d = rm > 0.f ? 1.f / rm : 1.f;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) a[j] = lam[j] * d;
+}
 
-  // the cavity of variable i+1, read once for all K slots
-  const size_t var = (size_t)r * A.V + i + 1;
-  const float mu0 = __ldg(A.snap_mu + 4 * var), mu1 = __ldg(A.snap_mu + 4 * var + 1);
-  float eta[4], lam[4][4];
+// Piece j of robot r's snapshot rows 1..V1 as 16-byte words: j < V1 is eta
+// of variable j+1, then the four rows of each variable's precision.
+__device__ __forceinline__ float4 cavity_piece(const IrArgs& A, int r, int V1, int j) {
+  const size_t var0 = (size_t)r * A.V + 1;
+  return j < V1 ? __ldg(reinterpret_cast<const float4*>(A.snap_eta) + var0 + j)
+                : __ldg(reinterpret_cast<const float4*>(A.snap_lam) + 4 * var0 + (j - V1));
+}
+
+__global__ void __launch_bounds__(kMaxThreads) interrobot_slot_kernel(IrArgs A) {
+  // the robot's snapshot rows as read, then the cavity table [kCav][V1]
+  extern __shared__ float4 raw[];
+  const int V1 = A.V - 1, KV1 = A.K * V1, n_raw = 5 * V1;
+  float* cav = reinterpret_cast<float*>(raw + n_raw);
+  const int r = blockIdx.x;
+  const int local = blockIdx.y * blockDim.x + threadIdx.x;
+  const bool in = local < KV1;
+  const int k = local / V1, i = local - k * V1;
+  const size_t e = (size_t)r * KV1 + local;
+
+  // The skip test first: an unseeded slot (empty cavity: M = alpha g g^T
+  // has rank 1, so det = 0) or a pair at or beyond the safety distance gives
+  // an empty message whatever the inverse says. Its loads and the block's
+  // first snapshot words are issued together, before any waits for another.
+  const float2 zero2 = make_float2(0.f, 0.f);
+  const bool seeded = in && __ldg(A.seeded + e) != 0;
+  const float2 p = in ? __ldg(reinterpret_cast<const float2*>(A.p_ext) + e) : zero2;
+  const float2 own = in ? __ldg(reinterpret_cast<const float2*>(A.snap_mu) + 2 * ((size_t)r * A.V + i + 1))
+                        : zero2;
+  const float4 first = threadIdx.x < n_raw ? cavity_piece(A, r, V1, threadIdx.x)
+                                           : make_float4(0.f, 0.f, 0.f, 0.f);
+  const float2 mu = seeded ? own : zero2;
+  const float safety = __ldg(A.safety + r);
+  const float dx = mu.x - p.x;
+  const float dy = mu.y - p.y;
+  const bool skipped = dx * dx + dy * dy >= safety * safety;
+  const bool work = seeded && !skipped;
+  float4* out = reinterpret_cast<float4*>(A.out) + e;
+  if (!__syncthreads_or(work)) {   // no live factor in the block
+    if (in) *out = make_float4(0.f, 0.f, 0.f, 0.f);
+    return;
+  }
+
+  // the robot's cavities, once per block: the snapshot rows (coalesced
+  // 16-byte words), then per chain position the table's entries
+  if (threadIdx.x < n_raw) raw[threadIdx.x] = first;
+  for (int j = threadIdx.x + blockDim.x; j < n_raw; j += blockDim.x) raw[j] = cavity_piece(A, r, V1, j);
+  __syncthreads();
+  for (int c = threadIdx.x; c < V1; c += blockDim.x) {
+    const float4 eta = raw[c];
+    const float4* rows = raw + V1 + 4 * c;
+    const float lam0[4] = {rows[0].x, rows[0].y, rows[0].z, rows[0].w};
+    const float lam1[4] = {rows[1].x, rows[1].y, rows[1].z, rows[1].w};
+    const float lam2[4] = {rows[2].x, rows[2].y, rows[2].z, rows[2].w};
+    const float lam3[4] = {rows[3].x, rows[3].y, rows[3].z, rows[3].w};
+    cav[(C_ETA + 0) * V1 + c] = eta.x;
+    cav[(C_ETA + 1) * V1 + c] = eta.y;
+    cav[(C_ETA + 2) * V1 + c] = eta.z;
+    cav[(C_ETA + 3) * V1 + c] = eta.w;
+#pragma unroll
+    for (int b = 0; b < 4; ++b) {
+      cav[(C_LAM01 + b) * V1 + c] = lam0[b];
+      cav[(C_LAM01 + 4 + b) * V1 + c] = lam1[b];
+    }
+    float a2[4], a3[4];
+    scaled_row(lam2, a2);
+    scaled_row(lam3, a3);
+    const float minors[6] = {
+        a2[0] * a3[1] - a2[1] * a3[0], a2[0] * a3[2] - a2[2] * a3[0],
+        a2[0] * a3[3] - a2[3] * a3[0], a2[1] * a3[2] - a2[2] * a3[1],
+        a2[1] * a3[3] - a2[3] * a3[1], a2[2] * a3[3] - a2[3] * a3[2]};
+#pragma unroll
+    for (int m = 0; m < 6; ++m) cav[(C_MINOR + m) * V1 + c] = minors[m];
+  }
+  __syncthreads();
+  if (!work) {
+    if (in) *out = make_float4(0.f, 0.f, 0.f, 0.f);
+    return;
+  }
+  auto cv = [&](int f) { return cav[f * V1 + i]; };   // the (seeded) cavity
+
+  // tiny offset, h0 and g (factors._interrobot_measurement)
+  const float gid_base = __ldg(A.gids + r) * static_cast<float>(KV1);
+  const float tiny =
+      1e-6f * (((gid_base + static_cast<float>(k) * static_cast<float>(V1)) +
+                static_cast<float>(i)) + 1.f);
+  const float ox = dx + tiny, oy = dy + tiny;
+  const float dist = sqrtf(ox * ox + oy * oy);
+  const bool within = dist <= safety;
+  const float h0 = within ? 1.f - dist / safety : 0.f;
+  const float scale = safety * (dist > 0.f ? dist : 1.f);
+  const float gx = within ? -ox / scale : 0.f;
+  const float gy = within ? -oy / scale : 0.f;
+  const float resid = (gx * dx + gy * dy) - h0;
+
+  // M = alpha g g^T + cavity (factors.interrobot_rank1_messages): rows 0-1
+  // here, rows 2-3 the cavity's; the row-scaled cofactor inverse
+  // (inv4_rowscaled), columns 0-1 only
+  const float alpha = A.alpha;
+  const float g4[4] = {gx, gy, 0.f, 0.f};
+  float a0[4], a1[4];
+#pragma unroll
+  for (int b = 0; b < 4; ++b) {
+    a0[b] = alpha * gx * g4[b] + cv(C_LAM01 + b);
+    a1[b] = alpha * gy * g4[b] + cv(C_LAM01 + 4 + b);
+  }
+  float d[2];
+  {
+    const float rm0 = fmaxf(fmaxf(fabsf(a0[0]), fabsf(a0[1])), fmaxf(fabsf(a0[2]), fabsf(a0[3])));
+    const float rm1 = fmaxf(fmaxf(fabsf(a1[0]), fabsf(a1[1])), fmaxf(fabsf(a1[2]), fabsf(a1[3])));
+    d[0] = rm0 > 0.f ? 1.f / rm0 : 1.f;
+    d[1] = rm1 > 0.f ? 1.f / rm1 : 1.f;
+  }
+#pragma unroll
+  for (int b = 0; b < 4; ++b) {
+    a0[b] *= d[0];
+    a1[b] *= d[1];
+  }
+  const float d01 = cv(C_MINOR), d02 = cv(C_MINOR + 1), d03 = cv(C_MINOR + 2);
+  const float d12 = cv(C_MINOR + 3), d13 = cv(C_MINOR + 4), d23 = cv(C_MINOR + 5);
+  const float c01 = a0[0] * a1[1] - a0[1] * a1[0];
+  const float c02 = a0[0] * a1[2] - a0[2] * a1[0];
+  const float c03 = a0[0] * a1[3] - a0[3] * a1[0];
+  const float c12 = a0[1] * a1[2] - a0[2] * a1[1];
+  const float c13 = a0[1] * a1[3] - a0[3] * a1[1];
+  const float c23 = a0[2] * a1[3] - a0[3] * a1[2];
+  const float det = c01 * d23 - c02 * d13 + c03 * d12 + c12 * d03 - c13 * d02 + c23 * d01;
+  const float adj[4][2] = {
+      {a1[1] * d23 - a1[2] * d13 + a1[3] * d12, -a0[1] * d23 + a0[2] * d13 - a0[3] * d12},
+      {-a1[0] * d23 + a1[2] * d03 - a1[3] * d02, a0[0] * d23 - a0[2] * d03 + a0[3] * d02},
+      {a1[0] * d13 - a1[1] * d03 + a1[3] * d01, -a0[0] * d13 + a0[1] * d03 - a0[3] * d01},
+      {-a1[0] * d12 + a1[1] * d02 - a1[2] * d01, a0[0] * d12 - a0[1] * d02 + a0[2] * d01}};
+  const float safe_det = det == 0.f ? 1.f : det;
+
+  // q = g^T M^-1 g, w = g^T M^-1 (alpha g (J x0 - h) + cavity eta)
+  const float ar = alpha * resid;
+  float q = 0.f, w = 0.f;
 #pragma unroll
   for (int a = 0; a < 4; ++a) {
-    eta[a] = __ldg(A.snap_eta + 4 * var + a);
-#pragma unroll
-    for (int b = 0; b < 4; ++b) lam[a][b] = __ldg(A.snap_lam + 16 * var + 4 * a + b);
+    const float mg = (adj[a][0] / safe_det * d[0]) * gx + (adj[a][1] / safe_det * d[1]) * gy;
+    if (a < 2) q += g4[a] * mg;
+    w += mg * (ar * g4[a] + cv(C_ETA + a));
   }
-  const float safety = __ldg(A.safety + r);
-  const float safety2 = safety * safety;
-  const float gid_base = __ldg(A.gids + r) * static_cast<float>(A.K * V1);
-  const float alpha = A.alpha;
+  const float s = alpha * (1.f - alpha * q);
+  const float tt = alpha * (w - resid);
 
-  for (int k = 0; k < A.K; ++k) {
-    const size_t e = ((size_t)r * A.K + k) * V1 + i;
-    const bool seeded = __ldg(A.seeded + e) != 0;
-    const float px = __ldg(A.p_ext + 2 * e), py = __ldg(A.p_ext + 2 * e + 1);
-
-    // distance, skip, tiny offset, h0 and g (factors._interrobot_measurement)
-    const float dx = (seeded ? mu0 : 0.f) - px;
-    const float dy = (seeded ? mu1 : 0.f) - py;
-    const bool skipped = dx * dx + dy * dy >= safety2;
-    const float tiny =
-        1e-6f * (((gid_base + static_cast<float>(k) * static_cast<float>(V1)) +
-                  static_cast<float>(i)) + 1.f);
-    const float ox = dx + tiny, oy = dy + tiny;
-    const float dist = sqrtf(ox * ox + oy * oy);
-    const bool within = dist <= safety;
-    const float h0 = within ? 1.f - dist / safety : 0.f;
-    const float scale = safety * (dist > 0.f ? dist : 1.f);
-    const float gx = within ? -ox / scale : 0.f;
-    const float gy = within ? -oy / scale : 0.f;
-    const float resid = (gx * dx + gy * dy) - h0;
-
-    // M = alpha g g^T + cavity and the rank-1 marginal onto the external
-    // variable (factors.interrobot_rank1_messages)
-    const float g4[4] = {gx, gy, 0.f, 0.f};
-    float m[4][4], minv[4][4];
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-#pragma unroll
-      for (int b = 0; b < 4; ++b) m[a][b] = alpha * g4[a] * g4[b] + (seeded ? lam[a][b] : 0.f);
-    const float det = inv4_rowscaled(m, minv);
-    const float ar = alpha * resid;
-    float q = 0.f, w = 0.f;
-#pragma unroll
-    for (int a = 0; a < 4; ++a) {
-      float mg = minv[a][0] * g4[0];
-#pragma unroll
-      for (int b = 1; b < 4; ++b) mg += minv[a][b] * g4[b];
-      q += g4[a] * mg;
-      w += mg * (ar * g4[a] + (seeded ? eta[a] : 0.f));
-    }
-    const float s = alpha * (1.f - alpha * q);
-    const float tt = alpha * (w - resid);
-
-    const float gmax = fmaxf(fabsf(gx), fabsf(gy));
-    const float gmax2 = gmax * gmax;
-    const float sg = fabsf(s) * gmax2;
-    const bool valid = fabsf(det) > 1e-6f && isfinite(s) && isfinite(tt) &&
-                       sg <= A.four_alpha * gmax2 + 1.f && !(sg <= A.rtol_alpha * gmax2) &&
-                       !skipped;
-    float* o = A.out + 4 * e;
-    o[0] = valid ? gx : 0.f;
-    o[1] = valid ? gy : 0.f;
-    o[2] = valid ? tt : 0.f;
-    o[3] = valid ? s : 0.f;
-  }
+  const float gmax = fmaxf(fabsf(gx), fabsf(gy));
+  const float gmax2 = gmax * gmax;
+  const float sg = fabsf(s) * gmax2;
+  const bool valid = fabsf(det) > 1e-6f && isfinite(s) && isfinite(tt) &&
+                     sg <= A.four_alpha * gmax2 + 1.f && !(sg <= A.rtol_alpha * gmax2);
+  *out = valid ? make_float4(gx, gy, tt, s) : make_float4(0.f, 0.f, 0.f, 0.f);
 }
 
 }  // namespace
 
 // C entry point, loaded with ctypes (kernels/ir_slot.py). Pointers are the
-// contiguous device buffers listed in IrArgs; alpha = 1/sigma^2, four_alpha
-// = 4 alpha and rtol_alpha = rtol alpha, each rounded from double to float.
-// The kernel runs on `stream` and is not waited for. Returns
-// cudaGetLastError() after the launch; launches nothing for an empty table.
+// contiguous device buffers listed in IrArgs (snap_eta, snap_lam and out
+// 16-byte aligned, p_ext and snap_mu 8-byte); alpha = 1/sigma^2, four_alpha = 4 alpha and rtol_alpha =
+// rtol alpha, each rounded from double to float. The kernel runs on `stream`
+// and is not waited for. Returns cudaGetLastError() after the launch;
+// launches nothing for an empty table.
 extern "C" int ir_interrobot_slot(const void* seeded, const void* p_ext, const void* snap_mu,
                                   const void* snap_eta, const void* snap_lam,
                                   const void* safety, const void* gids, void* out, int R,
                                   int K, int V, float alpha, float four_alpha,
                                   float rtol_alpha, void* stream) {
-  const long long n = (long long)R * (V - 1);
-  if (n <= 0 || K <= 0) return 0;
+  const int V1 = V - 1, KV1 = K * V1;
+  if (R <= 0 || V1 <= 0 || K <= 0) return 0;
   IrArgs a;
   a.seeded = static_cast<const unsigned char*>(seeded);
   a.p_ext = static_cast<const float*>(p_ext);
@@ -178,7 +296,18 @@ extern "C" int ir_interrobot_slot(const void* seeded, const void* p_ext, const v
   a.alpha = alpha;
   a.four_alpha = four_alpha;
   a.rtol_alpha = rtol_alpha;
-  const unsigned int blocks = static_cast<unsigned int>((n + kThreads - 1) / kThreads);
-  interrobot_slot_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(a);
+  // a robot's K V1 factors in as few blocks of at most kMaxThreads as cover
+  // them, each a whole number of warps
+  const int chunks = (KV1 + kMaxThreads - 1) / kMaxThreads;
+  const int threads = ((KV1 + chunks - 1) / chunks + 31) / 32 * 32;
+  const size_t smem = (sizeof(float4) * 5 + sizeof(float) * kCav) * V1;
+  static size_t smem_set = 48 * 1024;   // the attribute, once it exceeds the default
+  if (smem > smem_set) {
+    const cudaError_t rc = cudaFuncSetAttribute(
+        interrobot_slot_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (rc != cudaSuccess) return static_cast<int>(rc);
+    smem_set = smem;
+  }
+  interrobot_slot_kernel<<<dim3(R, chunks), threads, smem, static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
 }

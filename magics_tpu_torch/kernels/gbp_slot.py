@@ -7,8 +7,14 @@ field is a [c..., P, R] plane stack with robots last, and the wrappers take
 and return the same dicts of fields as the JAX functions, so the tests feed
 both the same inputs.
 
-* `internal_slot` — one internal slot: dynamic, obstacle and tracking factor
-  messages, then the variable pass with snapshots and responses.
+* `internal_slot` — one internal slot: the obstacle factors' SDF taps,
+  dynamic, obstacle and tracking factor messages, then the variable pass
+  with snapshots and responses. The JAX kernel takes the taps as inputs
+  (`obs_h0/hx/hy`, computed outside it because a TPU gather serialises); the
+  port's kernel takes the SDF image and computes them itself.
+  `internal_slot_reference` is the JAX-shaped plain version (taps in), held
+  against the Pallas kernel; `internal_slot_fused_reference` is the plain
+  version of the fused function (`obstacle_taps`, then the reference).
 * `variable_slot` — the belief update of an external slot.
 
 On a CUDA tensor each wrapper checks dtype, device, shape and contiguity,
@@ -21,6 +27,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 
 import torch
 
@@ -81,6 +88,12 @@ _IN_FIELDS = (
     "ext_sum_eta",   # [4, V, R] — sum over K of delivered external messages
     "ext_sum_lam",   # [4, 4, V, R]
 )
+
+#: the SDF taps of the JAX kernel's inputs, which the port's kernel computes
+_TAP_FIELDS = ("obs_h0", "obs_hx", "obs_hy")
+
+#: input order of the port's internal-slot kernel (csrc/gbp_slot.cu `In`)
+_KERNEL_IN_FIELDS = tuple(n for n in _IN_FIELDS if n not in _TAP_FIELDS)
 
 _OUT_FIELDS = (
     "belief_eta",
@@ -316,6 +329,20 @@ def internal_slot_reference(h: dict, p: SlotParams) -> dict:
     return {name: hot(x) for name, x in out.items()}
 
 
+def internal_slot_fused_reference(
+    h: dict, sdf: torch.Tensor, world: tuple[float, float], p: SlotParams
+) -> dict:
+    """The plain version of the port's fused internal slot: the SDF taps of
+    the obstacle linearisation points (`factors.obstacle_taps`, the JAX
+    "gather" method), then `internal_slot_reference`. `h` holds the kernel's
+    fields (_KERNEL_IN_FIELDS), `sdf` the [H, W] image over a world of
+    `world` (width, height) metres."""
+    taps = F.obstacle_taps(
+        h["obs_v2f_mu"].movedim(0, -1), sdf, world, dtype=h["belief_eta"].dtype
+    )
+    return internal_slot_reference({**h, **dict(zip(_TAP_FIELDS, taps))}, p)
+
+
 def variable_slot_reference(h: dict, p: SlotParams) -> dict:
     """The external slot's belief update in plain PyTorch, on the hot dict."""
     b_eta, b_lam, b_mean = _variable_pass(
@@ -346,9 +373,12 @@ def _lib() -> ctypes.CDLL:
         ints = ctypes.POINTER(ctypes.c_int)
         c_int = ctypes.c_int
         lib.gbp_internal_slot.argtypes = [
-            ptrs, ptrs, c_int, c_int, c_int, floats, ints, ctypes.c_void_p
+            ptrs, ptrs, ctypes.c_void_p, c_int, c_int, c_int, c_int, c_int, floats, ints,
+            ctypes.c_void_p,
         ]
         lib.gbp_internal_slot.restype = c_int
+        lib.gbp_internal_tile.argtypes = [c_int]
+        lib.gbp_internal_tile.restype = c_int
         lib.gbp_variable_slot.argtypes = [
             ptrs, ptrs, c_int, c_int, floats, ints, ctypes.c_void_p
         ]
@@ -361,7 +391,9 @@ def _lib() -> ctypes.CDLL:
             lib.gbp_slot_in_fields(), lib.gbp_slot_out_fields(),
             lib.gbp_variable_in_fields(), lib.gbp_variable_out_fields(),
         )
-        expected = (len(_IN_FIELDS), len(_OUT_FIELDS), len(_VAR_IN_FIELDS), len(_VAR_OUT_FIELDS))
+        expected = (
+            len(_KERNEL_IN_FIELDS), len(_OUT_FIELDS), len(_VAR_IN_FIELDS), len(_VAR_OUT_FIELDS)
+        )
         if counts != expected:
             raise RuntimeError(f"kernel field counts {counts} != {expected}")
         _LIB = lib
@@ -420,30 +452,113 @@ def _device_kind(h: dict) -> str:
     return dev.type
 
 
-def internal_slot(h: dict, p: SlotParams) -> dict:
+class _InternalPlan:
+    """What an internal-slot launch needs that depends only on the slot
+    parameters, R, the SDF's shape, the world size and the device: the
+    inputs' expected shapes and types, the outputs' places in one buffer,
+    and the ctypes argument arrays (filled anew at every call)."""
+
+    def __init__(self, p: SlotParams, R: int, sdf_shape, world, device) -> None:
+        V, W = p.n_vars, p.max_waypoints
+        shapes = field_shapes(V, R, W)
+        self.device = device
+        self.R, self.V, self.W = R, V, W
+        self.sdf_shape = tuple(sdf_shape)
+        self.inputs = [
+            (n, torch.Size(shapes[n]), torch.int32 if n in _INT_FIELDS else torch.float32)
+            for n in _KERNEL_IN_FIELDS
+        ]
+        # every output a contiguous slice of one float32 buffer, 256-byte
+        # aligned (int fields are viewed as int32)
+        self.outputs, offset = [], 0
+        for n in _OUT_FIELDS:
+            shape = torch.Size(shapes[n])
+            self.outputs.append((n, shape, _contiguous(shape), offset, n in _INT_FIELDS))
+            offset += -(-shape.numel() // 64) * 64
+        self.numel = offset
+        self.in_ptrs = (ctypes.c_void_p * len(_KERNEL_IN_FIELDS))()
+        self.out_ptrs = (ctypes.c_void_p * len(_OUT_FIELDS))()
+        self.out_offsets = [4 * off for _, _, _, off, _ in self.outputs]
+        H, Ws = self.sdf_shape
+        ww, wh = world
+        f, self.flags = _scalars(p)
+        # the taps' constants as obstacle_taps rounds them against float32
+        self.f = (ctypes.c_float * 14)(
+            *f, ww / 2.0, wh / 2.0, Ws / ww, H / wh, F.obstacle_delta((H, Ws), world)
+        )
+
+    def check(self, h: dict, sdf: torch.Tensor) -> list[torch.Tensor]:
+        """The kernel's inputs in order, after checking device, dtype, shape
+        and contiguity; raises on anything the kernel does not take."""
+        ins = []
+        for name, shape, dtype in self.inputs:
+            x = h[name]
+            if x.device != self.device:
+                raise ValueError(f"{name} is on {x.device}, gate on {self.device}")
+            if x.dtype != dtype:
+                raise TypeError(f"{name} is {x.dtype}; the kernel takes {dtype}")
+            if x.shape != shape:
+                raise ValueError(f"{name} has shape {tuple(x.shape)}, expected {tuple(shape)}")
+            if not x.is_contiguous():
+                raise ValueError(f"{name} is not contiguous")
+            ins.append(x)
+        if sdf.device != self.device or sdf.dtype != torch.float32 or not sdf.is_contiguous():
+            raise ValueError(
+                f"the SDF must be a contiguous float32 tensor on {self.device}, "
+                f"got {sdf.dtype} on {sdf.device}"
+            )
+        return ins
+
+
+def _contiguous(shape) -> tuple[int, ...]:
+    stride, acc = [], 1
+    for n in reversed(shape):
+        stride.append(acc)
+        acc *= n
+    return tuple(reversed(stride))
+
+
+@functools.lru_cache(maxsize=64)
+def _internal_plan(p: SlotParams, R: int, sdf_shape, world, device) -> _InternalPlan:
+    return _InternalPlan(p, R, sdf_shape, world, device)
+
+
+def internal_slot(
+    h: dict, sdf: torch.Tensor, world: tuple[float, float], p: SlotParams
+) -> dict:
     """Run the internal slot: the CUDA kernel on CUDA tensors, the plain
-    version on CPU tensors. `h` maps _IN_FIELDS to hot-layout tensors;
+    version (`internal_slot_fused_reference`) on CPU tensors. `h` maps
+    _KERNEL_IN_FIELDS to hot-layout tensors (other keys are ignored), `sdf`
+    is the [H, W] image over a world of `world` (width, height) metres;
     returns a dict of _OUT_FIELDS (fresh tensors)."""
     if _device_kind(h) == "cpu":
-        return internal_slot_reference(h, p)
-    V, W = p.n_vars, p.max_waypoints
-    if V < 3:
-        raise ValueError(f"the slot kernel needs V >= 3, got {V}")
-    ins, R = _checked_inputs(h, _IN_FIELDS, V, W)
-    shapes = field_shapes(V, R, W)
-    outs = [
-        torch.empty(
-            shapes[n], device=ins[0].device,
-            dtype=torch.int32 if n in _INT_FIELDS else torch.float32,
-        )
-        for n in _OUT_FIELDS
-    ]
-    f, flags = _scalars(p)
-    stream = torch.cuda.current_stream(ins[0].device).cuda_stream
-    rc = _lib().gbp_internal_slot(_ptrs(ins), _ptrs(outs), R, V, W, f, flags, stream)
+        return internal_slot_fused_reference(h, sdf, world, p)
+    if p.n_vars < 3:
+        raise ValueError(f"the slot kernel needs V >= 3, got {p.n_vars}")
+    if sdf.ndim != 2:
+        raise ValueError(f"the SDF must be [H, W], got shape {tuple(sdf.shape)}")
+    gate = h["gate"]
+    plan = _internal_plan(p, gate.shape[-1], tuple(sdf.shape), tuple(world), gate.device)
+    ins = plan.check(h, sdf)
+    for j, x in enumerate(ins):
+        plan.in_ptrs[j] = x.data_ptr()
+    buf = torch.empty(plan.numel, dtype=torch.float32, device=plan.device)
+    base = buf.data_ptr()
+    for j, off in enumerate(plan.out_offsets):
+        plan.out_ptrs[j] = base + off
+    H, Ws = plan.sdf_shape
+    stream = torch.cuda.current_stream(plan.device).cuda_stream
+    rc = _lib().gbp_internal_slot(
+        plan.in_ptrs, plan.out_ptrs, sdf.data_ptr(), plan.R, plan.V, plan.W, H, Ws,
+        plan.f, plan.flags, stream,
+    )
     _check_launch(rc, "internal_slot")
     launch_counts["internal_slot"] += 1
-    return dict(zip(_OUT_FIELDS, outs))
+    ibuf = buf.view(torch.int32)
+    return {
+        name: (ibuf if is_int else buf).as_strided(shape, stride, off)
+        for name, shape, stride, off, is_int in plan.outputs
+    }
 
 
 def variable_slot(h: dict, p: SlotParams) -> dict:

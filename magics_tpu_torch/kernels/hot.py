@@ -4,7 +4,7 @@
 "Hot layout" puts the robot axis last and component axes first, so the slot
 kernels (kernels/gbp_slot.py) see every field as a [c..., P, R] plane stack.
 The state is transposed into this layout once per tick; every internal slot
-is one `internal_slot` launch (plus the SDF taps, plain indexing); every
+is one `internal_slot` launch (the kernel samples the SDF itself); every
 external slot runs the external factor pass on the normal layout (under
 "sender" one `interrobot_slot` launch and one row gather), then one
 `variable_slot` launch and the response delivery (under "sender" one row
@@ -18,7 +18,7 @@ from dataclasses import replace
 
 import torch
 
-from magics_tpu.core.constants import TRACKING_SKIP_FIRST_N_FACTOR_ITERS
+from magics_tpu_torch.core.constants import TRACKING_SKIP_FIRST_N_FACTOR_ITERS
 from magics_tpu_torch.graph import factors as F
 from magics_tpu_torch.graph import tick as T
 from magics_tpu_torch.graph.state import GbpParams, SimState
@@ -132,19 +132,16 @@ def iterate_gbp_hot(
     for i_flag, e_flag in params.schedule:
         if i_flag:
             tgate_r = gate_r & (ic >= TRACKING_SKIP_FIRST_N_FACTOR_ITERS)
-            # SDF taps by plain indexing, hot orientation [V2, R]
-            taps = F.obstacle_taps(h["obs_v2f_mu"].movedim(0, -1), sdf, world, dtype=f)
             outs = internal_slot(
                 {
                     **h,
                     "gate": gate_h,
                     "tgate": tgate_r.to(f)[None, :].contiguous(),
-                    "obs_h0": taps[0].contiguous(),
-                    "obs_hx": taps[1].contiguous(),
-                    "obs_hy": taps[2].contiguous(),
                     "ext_sum_eta": ext_sum[0],
                     "ext_sum_lam": ext_sum[1],
                 },
+                sdf,
+                world,
                 sp,
             )
             h = {**h, **outs}

@@ -107,6 +107,10 @@ def _lib() -> ctypes.CDLL:
     return _LIB
 
 
+#: the kernel reads these in 8- or 16-byte words
+_ALIGN = {"p_ext": 8, "snap_mu": 8, "snap_eta": 16, "snap_lam": 16}
+
+
 def _checked(inputs: dict) -> tuple[int, int, int]:
     """Check the kernel's inputs; returns (R, K, V)."""
     seeded = inputs["seeded"]
@@ -127,6 +131,8 @@ def _checked(inputs: dict) -> tuple[int, int, int]:
             raise ValueError(f"{name} has shape {tuple(x.shape)}, expected {want}")
         if not x.is_contiguous():
             raise ValueError(f"{name} is not contiguous")
+        if x.data_ptr() % _ALIGN.get(name, 1):
+            raise ValueError(f"{name} is not {_ALIGN[name]}-byte aligned")
     return R, K, V
 
 

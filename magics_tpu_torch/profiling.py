@@ -1,0 +1,77 @@
+"""Device-side measurements of the port on an NVIDIA GPU, by torch.profiler.
+
+Used by chip_smoke.py and scripts/torch_tick_compare.py. It imports nothing
+but torch, so the comparison script can load this file by path beside
+another checkout's package. Every function here needs a CUDA device: the
+profiler then records the kernels' own device time, which CUDA events
+around a wrapper call (host work included) do not give.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def _device_time_us(evt) -> float:
+    t = getattr(evt, "device_time_total", None)
+    return float(t if t is not None else evt.cuda_time_total)
+
+
+def _is_device_event(evt) -> bool:
+    return evt.device_type == torch.autograd.DeviceType.CUDA
+
+
+def profile(fn, attempts: int = 3) -> dict:
+    """Run `fn()` under torch.profiler (host and device) and return
+    {"launches": cudaLaunchKernel calls, "device_us": device time of every
+    kernel, copy and fill, "kernels": {name: [count, device us]}}. A window
+    in which the profiler recorded no device activity at all (it happens
+    now and then) is run again, up to `attempts` times; `fn` must be safe
+    to repeat."""
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    for _ in range(attempts):
+        torch.cuda.synchronize()
+        with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        launches, device_us, kernels = 0, 0.0, {}
+        for evt in prof.key_averages():
+            if evt.key.startswith("cudaLaunchKernel"):
+                launches += evt.count
+            elif _is_device_event(evt):
+                us = _device_time_us(evt)
+                device_us += us
+                kernels[evt.key] = [evt.count, us]
+        if device_us > 0.0:
+            return {"launches": launches, "device_us": device_us, "kernels": kernels}
+    raise RuntimeError(f"torch.profiler recorded no device time in {attempts} windows")
+
+
+#: bytes written between launches to push a kernel's inputs out of the
+#: H100's 50 MB L2 cache
+L2_FLUSH_BYTES = 64 << 20
+
+
+def kernel_device_us(fn, kernel: str, reps: int = 20, cold: bool = False) -> float:
+    """Device time per launch of the kernels whose name contains `kernel`,
+    over `reps` calls of `fn` (after one call to warm up): the mean over the
+    launches the profiler recorded (it may miss one at the window's edge).
+    With `cold`, a 64 MB fill before each call evicts the inputs from L2,
+    for a kernel whose caller finds them cold."""
+    fn()
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda") if cold else None
+
+    def calls():
+        for _ in range(reps):
+            if cold:
+                flush.zero_()
+            fn()
+
+    out = profile(calls)
+    hits = [(n, us) for name, (n, us) in out["kernels"].items() if kernel in name]
+    count = sum(n for n, _ in hits)
+    if count == 0:
+        raise RuntimeError(f"{kernel}: no launch profiled in {reps} calls")
+    return sum(us for _, us in hits) / count

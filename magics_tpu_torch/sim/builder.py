@@ -3,7 +3,8 @@ sim/builder.py).
 
 The numpy part is the JAX module's, copied because that module imports
 `jax.numpy`; the result is the port's `GbpParams`, a `SimState` on `device`
-and the SDF as a tensor on `device`. Comms-failure draws need a
+(the card by default) and the SDF as a tensor on `device`. `ScheduleKind` is
+re-exported for callers that build a schedule. Comms-failure draws need a
 `torch.Generator` on the same device, made by the caller.
 """
 
@@ -15,9 +16,9 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from magics_tpu.core.schedule import ScheduleKind, schedule_booleans
-from magics_tpu.core.timesteps import get_variable_timesteps
-from magics_tpu_torch.graph.state import GbpParams, SimState, init_state
+from magics_tpu_torch.core.schedule import ScheduleKind, schedule_booleans
+from magics_tpu_torch.core.timesteps import get_variable_timesteps
+from magics_tpu_torch.graph.state import GbpParams, SimState, init_state, require_device
 
 
 @dataclasses.dataclass
@@ -80,14 +81,16 @@ def build_scenario(
     sdf: np.ndarray | None = None,
     world: tuple[float, float] = (100.0, 100.0),
     dtype: torch.dtype = torch.float32,
-    device: torch.device | str = "cpu",
+    device: torch.device | str = "cuda",
     goal_areas: np.ndarray | None = None,
     **param_overrides,
 ) -> tuple[GbpParams, SimState, torch.Tensor]:
     """Build (params, state, sdf) for a run, with the arguments of magics_tpu's
     `build_scenario` (`seed` aside: it seeded the JAX PRNG key) plus
-    `device`. `use_pallas`, `ext_exchange`, `tracking_enabled` and the other
+    `device`, the card unless the caller asks for the CPU (without a card it
+    raises). `use_pallas`, `ext_exchange`, `tracking_enabled` and the other
     GbpParams fields pass through `param_overrides`."""
+    device = require_device(device)
     ts = get_variable_timesteps(int(target_speed * planning_horizon), lookahead_multiple)
     V = len(ts)
     R = capacity or len(specs)

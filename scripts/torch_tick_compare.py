@@ -1,0 +1,166 @@
+"""Compare checkouts of the PyTorch port (magics_tpu_torch) on one NVIDIA GPU,
+one process per checkout, in the order given:
+
+    python scripts/torch_tick_compare.py [--json OUT.json] PARENT_DIR . . PARENT_DIR
+
+For each checkout, the bench.py workload built by that checkout's port on
+the card, with its kernels, under "sender" and then "receiver_compact",
+driven as chip_smoke.py drives its slices: the scenario from
+`chip_smoke.bench_scenario` (asked for the card and the kernels, which an
+older checkout does not default to) and the timing from
+`chip_smoke.time_slice` (ms per tick over 3 timed chunks of 20 ticks after 2
+warm-up chunks; cudaLaunchKernel calls, device time per tick and each
+kernel's device time per launch from a 2-tick torch.profiler window). Under
+"sender" it adds the internal-slot wrapper's host time per call over 10
+ticks (no synchronisation, so its host work alone) and 10 ticks with
+synchronised host timers around each phase of the hot loop (ms per tick).
+
+Prints one `RESULT {json}` line per checkout and a summary, and with
+`--json` writes them all to that file. chip_smoke.py and the profiler
+helpers (magics_tpu_torch/profiling.py, which imports only torch) come from
+the checkout holding this script, loaded by path, so every checkout is
+driven by the same code and an older one needs neither.
+"""
+
+from __future__ import annotations
+
+import importlib.util
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+HERE = Path(__file__).resolve().parents[1]
+KERNELS = ("internal_slot_kernel", "variable_slot_kernel", "interrobot_slot_kernel",
+           "gather_rows_kernel")
+
+
+def _load(name: str, path: Path):
+    spec = importlib.util.spec_from_file_location(name, path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def _timers(targets, sync):
+    """Wrap each (module, name) with a host timer; returns the records
+    {name: [calls, seconds]} and a function that restores the originals."""
+    import torch
+
+    records, saved = {}, []
+    for module, name in targets:
+        if not hasattr(module, name):
+            continue
+        fn = getattr(module, name)
+        records[name] = [0, 0.0]
+
+        def timed(*args, _fn=fn, _rec=records[name], **kwargs):
+            if sync:
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = _fn(*args, **kwargs)
+            if sync:
+                torch.cuda.synchronize()
+            _rec[0] += 1
+            _rec[1] += time.perf_counter() - t0
+            return out
+
+        saved.append((module, name, fn))
+        setattr(module, name, timed)
+
+    def restore():
+        for module, name, fn in saved:
+            setattr(module, name, fn)
+
+    return records, restore
+
+
+def measure(tree: Path) -> dict:
+    sys.path.insert(0, str(tree))
+    import torch
+
+    import magics_tpu_torch
+    from magics_tpu_torch.graph import factors as F
+    from magics_tpu_torch.graph import tick as T
+    from magics_tpu_torch.kernels import hot as HOT
+
+    if Path(magics_tpu_torch.__file__).resolve().parents[1] != tree.resolve():
+        raise RuntimeError(f"imported {magics_tpu_torch.__file__}, not the checkout {tree}")
+    if not torch.cuda.is_available():
+        raise SystemExit("needs a CUDA device")
+    prof = _load("port_profiling", HERE / "magics_tpu_torch" / "profiling.py")
+    smoke = _load("chip_smoke_here", HERE / "chip_smoke.py")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip()
+    out = {"tree": str(tree), "card": smi.splitlines()[0], "torch": torch.__version__}
+
+    for exchange in ("sender", "receiver_compact"):
+        params, state, sdf = smoke.bench_scenario(torch, exchange, device="cuda",
+                                                  use_pallas=True)
+        run = smoke.time_slice(torch, params, state, sdf, prof.profile)
+        state, p = run["state"], run["profile"]
+        res = {"ms_per_tick": 1e3 * run["seconds"] / run["ticks"]}
+        res["launches_per_tick"] = p["launches"] / 2
+        res["device_ms_per_tick"] = p["device_us"] / 2e3
+        res["kernel_us_per_launch"] = {
+            k: sum(us for name, (n, us) in p["kernels"].items() if k in name)
+            / max(1, sum(n for name, (n, us) in p["kernels"].items() if k in name))
+            for k in KERNELS
+        }
+        if exchange == "sender":
+            rec, restore = _timers([(HOT, "internal_slot")], sync=False)
+            state = T.run_ticks(state, sdf, params, 10)
+            torch.cuda.synchronize()
+            restore()
+            calls, secs = rec["internal_slot"]
+            res["internal_slot_wrapper_host_ms_per_call"] = 1e3 * secs / calls
+            phases = [(F, "obstacle_taps"), (HOT, "internal_slot"), (HOT, "variable_slot"),
+                      (T, "external_factor_pass"), (HOT, "_ext_sum_hot"),
+                      (T, "seed_cavities"), (T, "deliver_responses"),
+                      (T, "update_connectivity")]
+            rec, restore = _timers(phases, sync=True)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state = T.run_ticks(state, sdf, params, 10)
+            torch.cuda.synchronize()
+            res["tick_ms_with_phase_timers"] = 1e3 * (time.perf_counter() - t0) / 10
+            restore()
+            res["phase_ms_per_tick"] = {n: [c / 10, 1e3 * s / 10] for n, (c, s) in rec.items()}
+        out[exchange] = res
+    return out
+
+
+def main() -> int:
+    if sys.argv[1:2] == ["--one"]:
+        print("RESULT " + json.dumps(measure(Path(sys.argv[2]))), flush=True)
+        return 0
+    args = sys.argv[1:]
+    out = None
+    if args[:1] == ["--json"]:
+        out, args = Path(args[1]), args[2:]
+    results = []
+    for tree in args:
+        proc = subprocess.run([sys.executable, __file__, "--one", tree], capture_output=True,
+                              text=True, cwd=HERE)
+        lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("RESULT ")]
+        if proc.returncode != 0 or not lines:
+            print(proc.stdout[-4000:], proc.stderr[-4000:], sep="\n", flush=True)
+            raise SystemExit(f"{tree}: exit {proc.returncode}")
+        results.append(json.loads(lines[0][len("RESULT "):]))
+        print(lines[0], flush=True)
+    for r in results:
+        s, rc = r["sender"], r["receiver_compact"]
+        print(f"{r['tree']}: sender {s['ms_per_tick']:.3f} ms/tick, "
+              f"{s['launches_per_tick']:.1f} launches/tick, device {s['device_ms_per_tick']:.3f} "
+              f"ms/tick, K1 wrapper {s['internal_slot_wrapper_host_ms_per_call']:.4f} ms/call; "
+              f"receiver_compact {rc['ms_per_tick']:.3f} ms/tick, "
+              f"{rc['launches_per_tick']:.1f} launches/tick ({r['card']})", flush=True)
+    if out is not None:
+        out.parent.mkdir(parents=True, exist_ok=True)
+        out.write_text(json.dumps(results, indent=1))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

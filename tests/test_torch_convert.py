@@ -41,7 +41,7 @@ def test_state_round_trip_is_bit_equal(jdtype):
     specs = JB.circle_formation(10, circle_radius=18.0, target_speed=8.0)
     _, state, _ = JB.build_scenario(specs, **_kw(jdtype, log_capacity=3, log_every=1))
     arrays = _jax_numpy(state)
-    back = convert.state_to_numpy(convert.state_from_numpy(arrays))
+    back = convert.state_to_numpy(convert.state_from_numpy(arrays, device="cpu"))
     assert set(back) == set(arrays) - convert.DROPPED_FIELDS
     for name, a in back.items():
         assert a.dtype == arrays[name].dtype, name
@@ -52,10 +52,10 @@ def test_state_from_numpy_rejects_unknown_and_missing_fields():
     specs = JB.circle_formation(4, circle_radius=18.0, target_speed=8.0)
     arrays = _jax_numpy(JB.build_scenario(specs, **_kw(jnp.float32))[1])
     with pytest.raises(ValueError):
-        convert.state_from_numpy({**arrays, "bogus": np.zeros(1)})
+        convert.state_from_numpy({**arrays, "bogus": np.zeros(1)}, device="cpu")
     del arrays["pos"]
     with pytest.raises(ValueError):
-        convert.state_from_numpy(arrays)
+        convert.state_from_numpy(arrays, device="cpu")
 
 
 @pytest.mark.parametrize(
@@ -71,9 +71,13 @@ def test_build_scenario_matches_jax_field_by_field(jdtype, tdtype):
         jspecs, **_kw(jdtype, sdf=np.linspace(0, 1, 64).reshape(8, 8), capacity=12)
     )
     tp, ts, tsdf = TB.build_scenario(
-        tspecs, **_kw(tdtype, sdf=np.linspace(0, 1, 64).reshape(8, 8), capacity=12)
+        tspecs, device="cpu",
+        **_kw(tdtype, sdf=np.linspace(0, 1, 64).reshape(8, 8), capacity=12),
     )
-    assert convert.params_from_jax(jp) == tp
+    # the port's use_pallas defaults to None (kernels on CUDA only); the
+    # bridge keeps the JAX value
+    assert tp.use_pallas is None
+    assert convert.params_from_jax(jp) == dataclasses.replace(tp, use_pallas=jp.use_pallas)
     np.testing.assert_array_equal(np.asarray(jsdf), tsdf.numpy())
     jarr, tarr = _jax_numpy(js), convert.state_to_numpy(ts)
     assert set(tarr) == set(jarr) - {"rng"}
@@ -112,7 +116,9 @@ UNPORTED = {
 @pytest.mark.parametrize("config", sorted(UNPORTED))
 def test_unported_configurations_raise(config):
     specs = TB.circle_formation(6, circle_radius=5.0, target_speed=8.0)
-    params, state, sdf = TB.build_scenario(specs, **_kw(torch.float32, **UNPORTED[config]))
+    params, state, sdf = TB.build_scenario(
+        specs, device="cpu", **_kw(torch.float32, **UNPORTED[config])
+    )
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TT.run_ticks(state, sdf, params, 2)
 
@@ -130,7 +136,9 @@ def test_exchange_configurations_run(config):
     """The sender and plain receiver exchanges, plain and hot: 2 ticks leave
     a finite state in which the robots moved."""
     specs = TB.circle_formation(6, circle_radius=5.0, target_speed=8.0)
-    params, state, sdf = TB.build_scenario(specs, **_kw(torch.float32, **EXCHANGES[config]))
+    params, state, sdf = TB.build_scenario(
+        specs, device="cpu", **_kw(torch.float32, **EXCHANGES[config])
+    )
     out = TT.run_ticks(state, sdf, params, 2)
     for name, x in convert.state_to_numpy(out).items():
         if x.dtype.kind == "f":
@@ -143,7 +151,7 @@ def test_comms_failure_needs_a_generator_and_uses_it():
     specs = TB.circle_formation(6, circle_radius=5.0, target_speed=8.0)
     kw = _kw(torch.float32, ext_exchange="receiver_compact")
     kw["comms_failure_rate"] = 1.0
-    params, state, sdf = TB.build_scenario(specs, **kw)
+    params, state, sdf = TB.build_scenario(specs, device="cpu", **kw)
     with pytest.raises(ValueError):
         TT.step(state, sdf, params)
     out = TT.step(state, sdf, params, generator=torch.Generator().manual_seed(0))

@@ -52,7 +52,7 @@ def _jax_run(n: int, dtype, exchange: str) -> dict:
 
 def _port_run(n: int, dtype, exchange: str, use_pallas: bool):
     params, state, sdf = TB.build_scenario(
-        _specs(TB), use_pallas=use_pallas, **_kw(dtype, exchange)
+        _specs(TB), use_pallas=use_pallas, device="cpu", **_kw(dtype, exchange)
     )
     return state_to_numpy(TT.run_ticks(state, sdf, params, n)), state_to_numpy(state)
 
@@ -126,7 +126,7 @@ def test_receiver_bit_equal_to_sender():
         runs[exchange] = TB.build_scenario(
             specs, target_speed=8.0, planning_horizon=2.0, hz=10.0, comms_radius=22.0,
             comms_failure_rate=0.3, internal=4, external=3, n_slots=6,
-            dtype=torch.float64, ext_exchange=exchange,
+            dtype=torch.float64, ext_exchange=exchange, device="cpu",
         ) + (torch.Generator().manual_seed(7),)
     (pa, sa, sdf, ga), (pb, sb, _, gb) = runs["sender"], runs["receiver"]
     failed = 0

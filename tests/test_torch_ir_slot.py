@@ -34,7 +34,7 @@ TOL = {jnp.float64: dict(rtol=1e-12, atol=1e-12), jnp.float32: dict(rtol=2e-5, a
 def evolved(request):
     jparams, jstate = _evolved_state(request.param)
     arrays = {f.name: np.asarray(getattr(jstate, f.name)) for f in dataclasses.fields(jstate)}
-    return request.param, jparams, jstate, convert.params_from_jax(jparams), convert.state_from_numpy(arrays)
+    return request.param, jparams, jstate, convert.params_from_jax(jparams), convert.state_from_numpy(arrays, device="cpu")
 
 
 def _port_table(tparams, tstate) -> np.ndarray:

@@ -62,7 +62,9 @@ def _jax_run(n: int, dtype):
 
 
 def _port_run(n: int, dtype, use_pallas=True):
-    params, state, sdf = TB.build_scenario(_specs(TB), use_pallas=use_pallas, **_kw(dtype))
+    params, state, sdf = TB.build_scenario(
+        _specs(TB), use_pallas=use_pallas, device="cpu", **_kw(dtype)
+    )
     return state_to_numpy(TT.run_ticks(state, sdf, params, n)), state_to_numpy(state)
 
 
@@ -163,7 +165,9 @@ def test_on_device_logs_match():
         specs[2].spawn_tick = specs[5].spawn_tick = 5
     jp, js, jsdf = JB.build_scenario(jax_specs, **_kw(jnp.float64, **kw))
     jfinal = jax.jit(partial(JT.run_ticks, n=7), static_argnums=2)(js, jsdf, jp)
-    tp, ts, tsdf = TB.build_scenario(port_specs, use_pallas=True, **_kw(torch.float64, **kw))
+    tp, ts, tsdf = TB.build_scenario(
+        port_specs, use_pallas=True, device="cpu", **_kw(torch.float64, **kw)
+    )
     tfinal = state_to_numpy(TT.run_ticks(ts, tsdf, tp, 7))
     assert int(tfinal["log_head"]) == int(np.asarray(jfinal.log_head)) == 4
     for name in ("pos_log", "vel_log", "viz_mean", "viz_cov", "viz_trk"):
