@@ -6,7 +6,8 @@ against PyTorch's headers, takes minutes). Each library is keyed by a hash
 of all the sources (the `.cuh` headers included) and the flags, and lives
 in `_build/` beside this file, which `.gitignore` lists; a later call in the
 same checkout reuses it. `build_all` starts one nvcc per source at once.
-Nothing is built or loaded when this module is imported.
+Nothing is built or loaded when this module is imported. `current_stream`
+gives the wrappers the stream a launch goes on.
 """
 
 from __future__ import annotations
@@ -93,6 +94,15 @@ def ptxas_report(name: str) -> str:
     """The -Xptxas -v lines of the current build of csrc/<name>.cu."""
     log = library_path(name).with_suffix(".log")
     return log.read_text() if log.exists() else ""
+
+
+def current_stream(device_index: int) -> int:
+    """The cudaStream_t (as an int) of PyTorch's current stream on card
+    `device_index`, for a launch: `torch.cuda.current_stream(i).cuda_stream`
+    without building a Stream object on every call."""
+    import torch
+
+    return torch._C._cuda_getCurrentRawStream(device_index)
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -25,7 +25,8 @@
 // points (V1 = V-1, V2 = V-2), float32:
 //   internal slot reads  3 + 49 V + 89 V1 + 53 V2 + 2 W floats (+ the SDF)
 //                 writes     48 V + 88 V1 + 53 V2     floats
-//   variable slot reads  1 + 49 V + 40 V1 + 40 V2     floats, writes 24 V.
+//   variable slot reads  1 + 49 V + 40 V1 + 40 V2     floats, writes 24 V
+//                 (a gated-on robot reads 1 + 25 V + 40 V1 + 40 V2).
 // At the bench shape (V=21, W=2, R=1024) that is 15,292 + 15,100 B per robot
 // and a 64 KB SDF, 31.2 MB per internal-slot launch, and 12.7 MB per
 // variable-slot launch. A gated-on robot needs less: not its old beliefs
@@ -81,6 +82,38 @@
 // took 33.8 us, 28% of HBM bandwidth. All on an NVIDIA H100 80GB HBM3 at
 // 700 W, torch.profiler, PERF.md.
 //
+// The variable slot's design (redesigned for this card the same way). A
+// block owns a tile of T robots (8 at the bench shape: 128 blocks of 336
+// threads at R=1024; the largest power of two up to 8 whose staged inputs
+// fit, so 8 up to V = 70, then 4 up to 139, 2 up to 277, 1 up to 554), two
+// threads per (robot, variable).
+//   1. Before any maths, the tile's belief-sum terms (prior mean and sigma,
+//      external sums, the dynamic, obstacle and tracking f2v messages: 1 +
+//      25 V + 40 V1 + 40 V2 floats a robot, 66.7 KB a block at the bench
+//      shape) go to shared memory by cp.async in one group, as above. The
+//      old belief, which only a gated-off robot (and a failed guard's mean)
+//      needs, is read from device memory where it is used.
+//   2. Both halves sum the terms in the Pallas kernel's order and run the
+//      guarded inverse as the internal slot's pairs do (the same bits as one
+//      thread's inverse), then split the writes: half 0 eta and precision
+//      rows 0-1, half 1 the mean and rows 2-3.
+// It agrees with its plain version bit for bit at the bench shape and takes
+// 9.4 us a launch in the sender ticks where the design before took 12.2
+// (the same call), 7.2 us in repeated calls and 10.1 with L2 flushed
+// (chip_smoke.py; scripts/torch_tick_compare.py times both designs). The
+// bound is 3.2 us; the staging, whose rows are 32 bytes (8 robots of a
+// plane row) scattered 4 KB apart, and the lockstep of load, inverse and
+// store in one block an SM are the suspects. 16-robot tiles (64 blocks) were
+// slower. The design before (16 robots a block, one thread per (robot,
+// variable), each loading its ~100 floats one after another from device
+// memory and running the whole inverse alone: 64 blocks of 176 threads for
+// 132 SMs) sat at 3.9x its bound. All on an NVIDIA H100 80GB HBM3 at 700 W,
+// torch.profiler. ptxas (sm_90a): 64 registers at every tile, no spills at
+// 8, 4 and 2 robots; the 1-robot tile (V >= 278 only) spills 8 bytes. Its
+// time at V = 278
+// against the 2-robot tile's at V = 277 is in PERF.md
+// (scripts/torch_tick_compare.py).
+//
 // Maths. It is that of the Pallas kernels, guards included: the row-scaled
 // cofactor inverse with det == 0 -> 1 in the division (inv4.cuh, shared
 // with ir_slot.cu), the finite check on each dynamic message, and the
@@ -103,9 +136,8 @@
 // float32 roundoff, not bit for bit; chip_smoke.py states the tolerances.
 //
 // Registers: kernels/build.py keeps the -Xptxas -v report beside the library
-// and chip_smoke.py prints it. The launch bounds (512 threads for the
-// internal slot, 256 for the variable slot) cap a thread's registers so that
-// any block the wrappers launch fits an SM.
+// and chip_smoke.py prints it. The launch bounds (512 threads) cap a
+// thread's registers so that any block the wrappers launch fits an SM.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -114,10 +146,8 @@
 
 namespace {
 
-constexpr int kVarRobotTile = 16;   // variable slot: robots per block
-constexpr int kMaxThreads = 256;    // variable slot: threads per block
-constexpr int kMaxSlotThreads = 512;  // internal slot: threads per block
-constexpr int kMaxTile = 8;         // internal slot: most robots per block
+constexpr int kMaxSlotThreads = 512;  // threads per block
+constexpr int kMaxTile = 8;         // most robots per block
 constexpr int kMaxSmem = 232448;    // bytes of shared memory a block may use
 
 // Field order of magics_tpu_torch/kernels/gbp_slot.py:_KERNEL_IN_FIELDS.
@@ -151,6 +181,13 @@ enum Staged {
   S_DELTA_T, S_DYN_V2F_ETA, S_DYN_V2F_LAM, S_OBS_V2F_MU,
   S_PRIOR_MEAN, S_PRIOR_SIGMA, S_EXT_SUM_ETA, S_EXT_SUM_LAM, N_STAGED
 };
+// The variable slot's staged inputs, in copy order: every term of a
+// gated-on robot's belief sum.
+enum VarStaged {
+  VS_PRIOR_MEAN, VS_PRIOR_SIGMA, VS_EXT_SUM_ETA, VS_EXT_SUM_LAM,
+  VS_DYN_F2V_ETA, VS_DYN_F2V_LAM, VS_OBS_F2V_ETA, VS_OBS_F2V_LAM,
+  VS_TRK_F2V_ETA, VS_TRK_F2V_LAM, N_VAR_STAGED
+};
 
 struct SlotScalars {
   int R, V, W;
@@ -161,7 +198,7 @@ struct SlotScalars {
   // the SDF taps (internal slot): image size, world -> pixel constants, step
   int sdf_h, sdf_w;
   float half_ww, half_wh, x_scale, y_scale, tap_delta;
-  int vec16;   // internal slot: staged planes 16-byte aligned and R % 4 == 0
+  int vec16;   // the staged planes 16-byte aligned and R % 4 == 0
 };
 
 struct SlotArgs {
@@ -215,41 +252,101 @@ __device__ __forceinline__ int ld_int(const void* p, const SlotScalars& s, int p
 
 // ------------------------------------------------------------ staging ---
 
-__host__ __device__ __forceinline__ int staged_field(int s) {
-  switch (s) {
-    case S_DELTA_T: return DELTA_T;
-    case S_DYN_V2F_ETA: return DYN_V2F_ETA;
-    case S_DYN_V2F_LAM: return DYN_V2F_LAM;
-    case S_OBS_V2F_MU: return OBS_V2F_MU;
-    case S_PRIOR_MEAN: return PRIOR_MEAN;
-    case S_PRIOR_SIGMA: return PRIOR_SIGMA;
-    case S_EXT_SUM_ETA: return EXT_SUM_ETA;
-    default: return EXT_SUM_LAM;
+// A list of staged fields: for staged field s, the input it copies
+// (`field`), its rows (c..., P) per robot (`rows`) and its plane length P
+// (`plane`), at V chain variables.
+struct InternalStaging {
+  static constexpr int kCount = N_STAGED;
+  __host__ __device__ static int field(int s) {
+    switch (s) {
+      case S_DELTA_T: return DELTA_T;
+      case S_DYN_V2F_ETA: return DYN_V2F_ETA;
+      case S_DYN_V2F_LAM: return DYN_V2F_LAM;
+      case S_OBS_V2F_MU: return OBS_V2F_MU;
+      case S_PRIOR_MEAN: return PRIOR_MEAN;
+      case S_PRIOR_SIGMA: return PRIOR_SIGMA;
+      case S_EXT_SUM_ETA: return EXT_SUM_ETA;
+      default: return EXT_SUM_LAM;
+    }
   }
-}
-
-// Rows (c..., P) of a staged field, and its plane length P.
-__host__ __device__ __forceinline__ int staged_rows(int s, int V) {
-  switch (s) {
-    case S_DELTA_T: return V - 1;
-    case S_DYN_V2F_ETA: return 8 * (V - 1);
-    case S_DYN_V2F_LAM: return 32 * (V - 1);
-    case S_OBS_V2F_MU: return 4 * (V - 2);
-    case S_PRIOR_MEAN: return 4 * V;
-    case S_PRIOR_SIGMA: return V;
-    case S_EXT_SUM_ETA: return 4 * V;
-    default: return 16 * V;
+  __host__ __device__ static int rows(int s, int V) {
+    switch (s) {
+      case S_DELTA_T: return V - 1;
+      case S_DYN_V2F_ETA: return 8 * (V - 1);
+      case S_DYN_V2F_LAM: return 32 * (V - 1);
+      case S_OBS_V2F_MU: return 4 * (V - 2);
+      case S_PRIOR_MEAN: return 4 * V;
+      case S_PRIOR_SIGMA: return V;
+      case S_EXT_SUM_ETA: return 4 * V;
+      default: return 16 * V;
+    }
   }
-}
+  __host__ __device__ static int plane(int s, int V) {
+    return s <= S_DYN_V2F_LAM ? V - 1 : (s == S_OBS_V2F_MU ? V - 2 : V);
+  }
+};
 
-__host__ __device__ __forceinline__ int staged_plane(int s, int V) {
-  return s <= S_DYN_V2F_LAM ? V - 1 : (s == S_OBS_V2F_MU ? V - 2 : V);
-}
+struct VariableStaging {
+  static constexpr int kCount = N_VAR_STAGED;
+  __host__ __device__ static int field(int s) {
+    switch (s) {
+      case VS_PRIOR_MEAN: return V_PRIOR_MEAN;
+      case VS_PRIOR_SIGMA: return V_PRIOR_SIGMA;
+      case VS_EXT_SUM_ETA: return V_EXT_SUM_ETA;
+      case VS_EXT_SUM_LAM: return V_EXT_SUM_LAM;
+      case VS_DYN_F2V_ETA: return V_DYN_F2V_ETA;
+      case VS_DYN_F2V_LAM: return V_DYN_F2V_LAM;
+      case VS_OBS_F2V_ETA: return V_OBS_F2V_ETA;
+      case VS_OBS_F2V_LAM: return V_OBS_F2V_LAM;
+      case VS_TRK_F2V_ETA: return V_TRK_F2V_ETA;
+      default: return V_TRK_F2V_LAM;
+    }
+  }
+  __host__ __device__ static int rows(int s, int V) {
+    switch (s) {
+      case VS_PRIOR_MEAN: return 4 * V;
+      case VS_PRIOR_SIGMA: return V;
+      case VS_EXT_SUM_ETA: return 4 * V;
+      case VS_EXT_SUM_LAM: return 16 * V;
+      case VS_DYN_F2V_ETA: return 8 * (V - 1);
+      case VS_DYN_F2V_LAM: return 32 * (V - 1);
+      case VS_OBS_F2V_ETA: case VS_TRK_F2V_ETA: return 4 * (V - 2);
+      default: return 16 * (V - 2);
+    }
+  }
+  __host__ __device__ static int plane(int s, int V) {
+    return s <= VS_EXT_SUM_LAM ? V : (s <= VS_DYN_F2V_LAM ? V - 1 : V - 2);
+  }
+};
 
+// Where staged field s starts, in rows of T robots.
+template <class L>
 __host__ __device__ __forceinline__ int staged_offset(int s, int V) {
   int rows = 0;
-  for (int i = 0; i < s; ++i) rows += staged_rows(i, V);
+  for (int i = 0; i < s; ++i) rows += L::rows(i, V);
   return rows;
+}
+
+// Shared memory of a block of `tile` robots, and the robots per block at V:
+// the largest power of two up to kMaxTile whose staged inputs fit (0 where
+// not even one robot's do).
+template <class L>
+size_t staged_smem(int V, int tile) {
+  return sizeof(float) * (size_t)tile * staged_offset<L>(L::kCount, V);
+}
+template <class L>
+int staged_tile(int V) {
+  for (int tile = kMaxTile; tile >= 1; tile /= 2)
+    if (staged_smem<L>(V, tile) <= kMaxSmem) return tile;
+  return 0;
+}
+
+// 16-byte copies where R % 4 == 0 and every staged plane is 16-byte aligned.
+template <class L>
+int staged_vec16(const void* const* in, int R) {
+  int ok = R % 4 == 0;
+  for (int s = 0; s < L::kCount; ++s) ok = ok && reinterpret_cast<size_t>(in[L::field(s)]) % 16 == 0;
+  return ok;
 }
 
 __device__ __forceinline__ void cp_async4(float* dst, const float* src, bool copy) {
@@ -268,19 +365,19 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// Issue the copies of staged fields [s_begin, s_end) of the tile's T robots
-// from r0 as one cp.async group; threads take consecutive elements. A whole
-// tile of aligned planes goes in 16-byte pieces, else element by element
-// (zero-filled past the robot edge).
-template <int T>
-__device__ __forceinline__ void stage(const SlotArgs& A, float* smem, int s_begin, int s_end,
-                                      int r0, int tid, int nthreads) {
-  const int V = A.s.V, R = A.s.R;
-  const bool vec = T % 4 == 0 && A.s.vec16 && r0 + T <= R;
-  float* dst = smem + T * staged_offset(s_begin, V);
+// Issue the copies of staged fields [s_begin, s_end) of list L (inputs `in`)
+// of the tile's T robots from r0 as one cp.async group; threads take
+// consecutive elements. A whole tile of aligned planes goes in 16-byte
+// pieces, else element by element (zero-filled past the robot edge).
+template <class L, int T>
+__device__ __forceinline__ void stage(const void* const* in, const SlotScalars& S, float* smem,
+                                      int s_begin, int s_end, int r0, int tid, int nthreads) {
+  const int V = S.V, R = S.R;
+  const bool vec = T % 4 == 0 && S.vec16 && r0 + T <= R;
+  float* dst = smem + T * staged_offset<L>(s_begin, V);
   for (int s = s_begin; s < s_end; ++s) {
-    const float* src = static_cast<const float*>(A.in[staged_field(s)]);
-    const int n = staged_rows(s, V) * T;
+    const float* src = static_cast<const float*>(in[L::field(s)]);
+    const int n = L::rows(s, V) * T;
     if (vec) {
       for (int j = tid; j < n / 4; j += nthreads) {
         const int row = j / (T / 4), q = 4 * (j % (T / 4));
@@ -593,59 +690,15 @@ struct Belief {
   float eta[4], lam[4][4], mean[4];
 };
 
-// The guards of the belief update and its mean, given the row-scaled
-// inverse `cov` of `lam` and that inverse's det: "precision not zero", det
-// != 0, finite, residual ||lam cov - I|| < 1e-4; the mean falls back to the
-// old one where a guard fails.
-template <class OldMean>
-__device__ __forceinline__ Belief finish_belief(const float eta[4], const float lam[4][4],
-                                                const float cov[4][4], float det,
-                                                OldMean old_mean) {
-  bool pnz = false;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) pnz = pnz || lam[i][j] > 1e-6f;
-  float resid = 0.f;
-  bool finite = true;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      float acc = lam[i][0] * cov[0][j];
-#pragma unroll
-      for (int k = 1; k < 4; ++k) acc += lam[i][k] * cov[k][j];
-      resid = fmaxf(resid, fabsf(acc - (i == j ? 1.f : 0.f)));
-      finite = finite && isfinite(cov[i][j]);
-    }
-  const bool valid = pnz && det != 0.f && finite && resid < 1e-4f;
-  float mean[4];
-  matvec4(cov, eta, mean);
-  Belief b;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    b.eta[i] = eta[i];
-    b.mean[i] = valid ? mean[i] : old_mean(i);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) b.lam[i][j] = lam[i][j];
-  }
-  return b;
-}
-
-// The guarded belief update from a summed eta / precision.
-template <class OldMean>
-__device__ __forceinline__ Belief solve_belief(const float eta[4], const float lam[4][4],
-                                               OldMean old_mean) {
-  float cov[4][4];
-  const float det = inv4_rowscaled(lam, cov);
-  return finish_belief(eta, lam, cov, det, old_mean);
-}
-
-// solve_belief for the two halves of a (robot, variable) pair, which hold
-// the same eta / precision: each half forms two columns of the row-scaled
-// inverse (half 0 columns 0-1, half 1 columns 2-3, by inv4_rowscaled's
-// formulas) and the pair swaps them by warp shuffles over `mask`, so both
-// end with solve_belief's covariance, bit for bit, and finish as it does.
+// The guarded belief update from a summed eta / precision, for the two
+// halves of a (robot, variable) pair, which hold the same eta / precision:
+// each half forms two columns of the row-scaled inverse (half 0 columns 0-1,
+// half 1 columns 2-3, by inv4_rowscaled's formulas) and the pair swaps them
+// by warp shuffles over `mask`, so both end with inv4_rowscaled's
+// covariance, bit for bit. The guards: "precision not zero", det != 0,
+// finite and residual ||lam cov - I|| < 1e-4, each half checking its own
+// columns and the pair combining the two (a max is exact in any order);
+// the mean falls back to the old one where a guard fails.
 template <class OldMean>
 __device__ __forceinline__ Belief solve_belief_pair(const float eta[4], const float lam[4][4],
                                                     int half, unsigned mask, OldMean old_mean) {
@@ -689,18 +742,47 @@ __device__ __forceinline__ Belief solve_belief_pair(const float eta[4], const fl
       {-p[0] * m23 + p[2] * m03 - p[3] * m02, q[0] * m23 - q[2] * m03 + q[3] * m02},
       {p[0] * m13 - p[1] * m03 + p[3] * m01, -q[0] * m13 + q[1] * m03 - q[3] * m01},
       {-p[0] * m12 + p[1] * m02 - p[2] * m01, q[0] * m12 - q[1] * m02 + q[2] * m01}};
-  const int j0 = 2 * half;
-  float cov[4][4];
+  float mine[4][2], cov[4][4];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
     for (int jj = 0; jj < 2; ++jj) {
-      const float mine = adj[i][jj] / safe_det * d[j0 + jj];
-      const float other = __shfl_xor_sync(mask, mine, 1);
-      cov[i][jj] = half == 0 ? mine : other;
-      cov[i][2 + jj] = half == 0 ? other : mine;
+      mine[i][jj] = adj[i][jj] / safe_det * (h0 ? d[jj] : d[2 + jj]);
+      const float other = __shfl_xor_sync(mask, mine[i][jj], 1);
+      cov[i][jj] = h0 ? mine[i][jj] : other;
+      cov[i][2 + jj] = h0 ? other : mine[i][jj];
     }
-  return finish_belief(eta, lam, cov, det, old_mean);
+  bool pnz = false;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) pnz = pnz || lam[i][j] > 1e-6f;
+  float resid = 0.f;   // over this half's columns j = 2 half + jj
+  bool finite = true;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int jj = 0; jj < 2; ++jj) {
+      float acc = lam[i][0] * mine[0][jj];
+#pragma unroll
+      for (int k = 1; k < 4; ++k) acc += lam[i][k] * mine[k][jj];
+      resid = fmaxf(resid, fabsf(acc - (i == 2 * half + jj ? 1.f : 0.f)));
+      finite = finite && isfinite(mine[i][jj]);
+    }
+  resid = fmaxf(resid, __shfl_xor_sync(mask, resid, 1));
+  finite = __shfl_xor_sync(mask, static_cast<int>(finite), 1) != 0 && finite;
+  const bool valid = pnz && det != 0.f && finite && resid < 1e-4f;
+  float mean[4];
+  matvec4(cov, eta, mean);
+  Belief b;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    b.eta[i] = eta[i];
+    b.mean[i] = valid ? mean[i] : old_mean(i);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) b.lam[i][j] = lam[i][j];
+  }
+  return b;
 }
 
 __device__ __forceinline__ Belief old_belief(const Plane& eta, const Plane& lam, const Plane& mean,
@@ -716,60 +798,6 @@ __device__ __forceinline__ Belief old_belief(const Plane& eta, const Plane& lam,
   return b;
 }
 
-// The variable slot's belief update of one variable: prior + external sum +
-// the factor messages in (dyn0, dyn1, interior) order, as the Pallas kernels
-// add them, then the guarded inverse. Returns the new (or, for a gated-off
-// robot, the old) belief.
-template <class DynEta, class DynLam, class IntEta, class IntLam>
-__device__ __forceinline__ Belief update_belief(
-    const SlotScalars& S, int r, int v, bool gate,
-    const void* belief_eta_p, const void* belief_lam_p, const void* belief_mean_p,
-    const void* prior_mean_p, const void* prior_sigma_p,
-    const void* ext_eta_p, const void* ext_lam_p,
-    DynEta dyn_eta, DynLam dyn_lam, IntEta int_eta, IntLam int_lam) {
-  const int V = S.V, V1 = V - 1;
-  Plane belief_mean = in_plane(belief_mean_p, V, S, r);
-  if (!gate)
-    return old_belief(in_plane(belief_eta_p, V, S, r), in_plane(belief_lam_p, V, S, r),
-                      belief_mean, v);
-  Plane prior_mean = in_plane(prior_mean_p, V, S, r);
-  Plane ext_eta = in_plane(ext_eta_p, V, S, r);
-  Plane ext_lam = in_plane(ext_lam_p, V, S, r);
-  const float ps = in_plane(prior_sigma_p, V, S, r)(0, v);
-  float eta[4], lam[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    eta[i] = ps * prior_mean(i, v) + ext_eta(i, v);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) lam[i][j] = (i == j ? ps : 0.f) + ext_lam(4 * i + j, v);
-  }
-  if (v < V1) {   // dynamic factor v, slot 0
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      eta[i] += dyn_eta(i, v);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) lam[i][j] += dyn_lam(4 * i + j, v);
-    }
-  }
-  if (v >= 1) {   // dynamic factor v-1, slot 1
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      eta[i] += dyn_eta(4 + i, v - 1);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) lam[i][j] += dyn_lam(16 + 4 * i + j, v - 1);
-    }
-  }
-  if (v >= 1 && v <= V - 2) {   // obstacle + tracking factor v-1
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      eta[i] += int_eta(i, v - 1);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) lam[i][j] += int_lam(4 * i + j, v - 1);
-    }
-  }
-  return solve_belief(eta, lam, [&](int i) { return belief_mean(i, v); });
-}
-
 __device__ __forceinline__ void store_belief(const Belief& b, OutPlane eta, OutPlane lam,
                                              OutPlane mean, int v) {
 #pragma unroll
@@ -780,14 +808,6 @@ __device__ __forceinline__ void store_belief(const Belief& b, OutPlane eta, OutP
     for (int j = 0; j < 4; ++j) lam(4 * i + j, v) = b.lam[i][j];
   }
 }
-
-// Sum of two interior (obstacle + tracking) message planes, added as one
-// term like the Pallas kernels' `obs + trk`.
-template <class P>
-struct SumPlanes {
-  P a, b;
-  __device__ float operator()(int c, int p) const { return a(c, p) + b(c, p); }
-};
 
 __device__ __forceinline__ void add_msg(float eta[4], float lam[4][4], const Msg& m) {
 #pragma unroll
@@ -864,8 +884,8 @@ __global__ void __launch_bounds__(kMaxSlotThreads) internal_slot_kernel(SlotArgs
   const unsigned mask = warp_lanes == 32 ? 0xffffffffu : (1u << warp_lanes) - 1u;
 
   // 1. the tile's inputs in flight at once, in two groups
-  stage<T>(A, smem, 0, S_PRIOR_MEAN, r0, tid, nthreads);
-  stage<T>(A, smem, S_PRIOR_MEAN, N_STAGED, r0, tid, nthreads);
+  stage<InternalStaging, T>(A.in, S, smem, 0, S_PRIOR_MEAN, r0, tid, nthreads);
+  stage<InternalStaging, T>(A.in, S, smem, S_PRIOR_MEAN, N_STAGED, r0, tid, nthreads);
 
   const int r = r0 + lr;
   const bool live = r < S.R;
@@ -873,7 +893,8 @@ __global__ void __launch_bounds__(kMaxSlotThreads) internal_slot_kernel(SlotArgs
   const bool gate = live && __ldg(static_cast<const float*>(A.in[GATE]) + rr) > 0.f;
   const bool tgate = live && __ldg(static_cast<const float*>(A.in[TGATE]) + rr) > 0.f;
   auto staged = [&](int s) {
-    return SPlane{smem + T * staged_offset(s, V), staged_plane(s, V), T, lr};
+    return SPlane{smem + T * staged_offset<InternalStaging>(s, V), InternalStaging::plane(s, V),
+                  T, lr};
   };
   const SPlane delta_t = staged(S_DELTA_T), v2f_eta = staged(S_DYN_V2F_ETA);
   const SPlane v2f_lam = staged(S_DYN_V2F_LAM), obs_mu = staged(S_OBS_V2F_MU);
@@ -963,66 +984,130 @@ __global__ void __launch_bounds__(kMaxSlotThreads) internal_slot_kernel(SlotArgs
   }
 }
 
-__global__ void __launch_bounds__(kMaxThreads) variable_slot_kernel(VarArgs A) {
+// Block: threadIdx.x = 2 * (robot in the tile) + half, threadIdx.y = chain
+// position, as in the internal slot. Both halves of a (robot, variable v)
+// pair sum the staged terms and run the belief inverse, each forming two of
+// its columns; half 0 writes eta and rows 0-1 of the precision, half 1 the
+// mean and rows 2-3. A gated-off robot copies its old belief, each half the
+// entries it writes, from device memory.
+template <int T>
+__global__ void __launch_bounds__(kMaxSlotThreads) variable_slot_kernel(VarArgs A) {
+  extern __shared__ float smem[];
   const SlotScalars& S = A.s;
   const int V = S.V, V1 = V - 1, V2 = V - 2;
-  const int r = blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= S.R) return;
-  const bool gate = __ldg(static_cast<const float*>(A.in[V_GATE]) + r) > 0.f;
-  Plane dyn_eta = in_plane(A.in[V_DYN_F2V_ETA], V1, S, r);
-  Plane dyn_lam = in_plane(A.in[V_DYN_F2V_LAM], V1, S, r);
-  SumPlanes<Plane> int_eta{in_plane(A.in[V_OBS_F2V_ETA], V2, S, r),
-                           in_plane(A.in[V_TRK_F2V_ETA], V2, S, r)};
-  SumPlanes<Plane> int_lam{in_plane(A.in[V_OBS_F2V_LAM], V2, S, r),
-                           in_plane(A.in[V_TRK_F2V_LAM], V2, S, r)};
-  for (int v = threadIdx.y; v < V; v += blockDim.y) {
-    const Belief b = update_belief(
-        S, r, v, gate, A.in[V_BELIEF_ETA], A.in[V_BELIEF_LAM], A.in[V_BELIEF_MEAN],
-        A.in[V_PRIOR_MEAN], A.in[V_PRIOR_SIGMA], A.in[V_EXT_SUM_ETA], A.in[V_EXT_SUM_LAM],
-        dyn_eta, dyn_lam, int_eta, int_lam);
-    store_belief(b, out_plane(A.out[VO_BELIEF_ETA], V, S, r),
-                 out_plane(A.out[VO_BELIEF_LAM], V, S, r),
-                 out_plane(A.out[VO_BELIEF_MEAN], V, S, r), v);
+  const int half = threadIdx.x & 1, lr = threadIdx.x >> 1, ny = blockDim.y;
+  const int nthreads = blockDim.x * ny, tid = threadIdx.y * blockDim.x + threadIdx.x;
+  const int r0 = blockIdx.x * T;
+  const int warp_lanes = min(32, nthreads - (tid & ~31));
+  const unsigned mask = warp_lanes == 32 ? 0xffffffffu : (1u << warp_lanes) - 1u;
+
+  // every term of the belief sums in flight at once, one group
+  stage<VariableStaging, T>(A.in, S, smem, 0, N_VAR_STAGED, r0, tid, nthreads);
+
+  const int r = r0 + lr;
+  const bool live = r < S.R;
+  const int rr = live ? r : 0;   // a safe robot index for address arithmetic
+  const bool gate = live && __ldg(static_cast<const float*>(A.in[V_GATE]) + rr) > 0.f;
+  auto staged = [&](int s) {
+    return SPlane{smem + T * staged_offset<VariableStaging>(s, V), VariableStaging::plane(s, V),
+                  T, lr};
+  };
+  const SPlane prior_mean = staged(VS_PRIOR_MEAN), prior_sigma = staged(VS_PRIOR_SIGMA);
+  const SPlane ext_eta = staged(VS_EXT_SUM_ETA), ext_lam = staged(VS_EXT_SUM_LAM);
+  const SPlane dyn_eta = staged(VS_DYN_F2V_ETA), dyn_lam = staged(VS_DYN_F2V_LAM);
+  const SPlane obs_eta = staged(VS_OBS_F2V_ETA), obs_lam = staged(VS_OBS_F2V_LAM);
+  const SPlane trk_eta = staged(VS_TRK_F2V_ETA), trk_lam = staged(VS_TRK_F2V_LAM);
+  // this half's planes: eta (half 0) or mean (half 1), and rows 2 half, 2 half + 1
+  void* const o_vec = half == 0 ? A.out[VO_BELIEF_ETA] : A.out[VO_BELIEF_MEAN];
+  const void* const i_vec = half == 0 ? A.in[V_BELIEF_ETA] : A.in[V_BELIEF_MEAN];
+  const int row0 = 8 * half;   // first precision entry of this half's rows
+
+  cp_async_wait<0>();
+  __syncthreads();
+  // Passes over the chain of uniform trip count, so every thread meets the
+  // ballot (and its pair the shuffles of the inverse).
+  for (int v0 = 0; v0 < V; v0 += ny) {
+    const int v = v0 + threadIdx.y;
+    const bool act = live && v < V;
+    const unsigned solving = __ballot_sync(mask, act && gate);
+    if (!act) continue;
+    OutPlane out_vec = out_plane(o_vec, V, S, rr);
+    OutPlane out_lam = out_plane(A.out[VO_BELIEF_LAM], V, S, rr);
+    if (!gate) {   // the old belief passes through
+      Plane old_vec = in_plane(i_vec, V, S, rr), old_lam = in_plane(A.in[V_BELIEF_LAM], V, S, rr);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) out_vec(i, v) = old_vec(i, v);
+#pragma unroll
+      for (int c = 0; c < 8; ++c) out_lam(row0 + c, v) = old_lam(row0 + c, v);
+      continue;
+    }
+    // prior + external sum, then dynamic factor v's slot 0, dynamic factor
+    // v-1's slot 1, obstacle + tracking factor v-1 as one term: the order
+    // in which the Pallas kernel adds them
+    const float ps = prior_sigma(0, v);
+    float eta[4], lam[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      eta[i] = ps * prior_mean(i, v) + ext_eta(i, v);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) lam[i][j] = (i == j ? ps : 0.f) + ext_lam(4 * i + j, v);
+    }
+    if (v < V1) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        eta[i] += dyn_eta(i, v);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) lam[i][j] += dyn_lam(4 * i + j, v);
+      }
+    }
+    if (v >= 1) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        eta[i] += dyn_eta(4 + i, v - 1);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) lam[i][j] += dyn_lam(16 + 4 * i + j, v - 1);
+      }
+    }
+    if (v >= 1 && v <= V2) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        eta[i] += obs_eta(i, v - 1) + trk_eta(i, v - 1);
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          lam[i][j] += obs_lam(4 * i + j, v - 1) + trk_lam(4 * i + j, v - 1);
+      }
+    }
+    Plane old_mean = in_plane(A.in[V_BELIEF_MEAN], V, S, rr);
+    const Belief b = solve_belief_pair(eta, lam, half, solving,
+                                       [&](int i) { return old_mean(i, v); });
+#pragma unroll
+    for (int i = 0; i < 4; ++i) out_vec(i, v) = half == 0 ? b.eta[i] : b.mean[i];
+#pragma unroll
+    for (int ii = 0; ii < 2; ++ii)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        out_lam(row0 + 4 * ii + j, v) = half == 0 ? b.lam[ii][j] : b.lam[2 + ii][j];
   }
 }
 
-// Variable slot block: kVarRobotTile robots x ny chain positions, ny spreading
-// V evenly over as few passes as keep the block within kMaxThreads.
-dim3 var_block_for(int V) {
-  const int max_ny = kMaxThreads / kVarRobotTile;
-  const int passes = (V + max_ny - 1) / max_ny;
-  return dim3(kVarRobotTile, (V + passes - 1) / passes);
-}
-
-// Shared memory of an internal-slot block of `tile` robots.
-size_t internal_smem(int V, int tile) {
-  return sizeof(float) * (size_t)tile * staged_offset(N_STAGED, V);
-}
-
-// The internal slot's robots per block at V: the largest power of two up to
-// kMaxTile whose staged inputs fit in shared memory (8 up to V = 104, then
-// 4, 2, 1); 0 where not even one robot's fit.
-int internal_tile(int V) {
-  for (int tile = kMaxTile; tile >= 1; tile /= 2)
-    if (internal_smem(V, tile) <= kMaxSmem) return tile;
-  return 0;
-}
-
-template <int T>
-int launch_internal(const SlotArgs& a, cudaStream_t stream) {
+// Launch a staged kernel (list L) with tiles of T robots: a block of 2T
+// threads (two per robot) times as many chain positions as kMaxSlotThreads
+// allows, one block per tile, the staged inputs in dynamic shared memory.
+template <class L, int T, class Args>
+int launch_staged(void (*kernel)(Args), const Args& a, cudaStream_t stream) {
   const int V = a.s.V;
-  const size_t smem = internal_smem(V, T);
+  const size_t smem = staged_smem<L>(V, T);
   static size_t smem_set = 48 * 1024;   // the attribute, once it exceeds the default
   if (smem > smem_set) {
-    const cudaError_t rc = cudaFuncSetAttribute(
-        internal_slot_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    const cudaError_t rc =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (rc != cudaSuccess) return static_cast<int>(rc);
     smem_set = smem;
   }
   const int max_ny = kMaxSlotThreads / (2 * T);
   const dim3 block(2 * T, V < max_ny ? V : max_ny);
   const dim3 grid((a.s.R + T - 1) / T);
-  internal_slot_kernel<T><<<grid, block, smem, stream>>>(a);
+  kernel<<<grid, block, smem, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1053,11 +1138,12 @@ SlotScalars scalars(int R, int V, int W, const float* f, const int* flags) {
 // `f` holds the float scalars in SlotScalars order (dyn_c11 ..
 // attraction_distance, then for the internal slot half_ww, half_wh, x_scale,
 // y_scale, tap_delta) and `flags` the 3 enable flags. The internal slot also
-// takes the SDF image [sdf_h, sdf_w]; its robots per block are
-// gbp_internal_tile(V). A kernel runs on `stream` and is not waited for.
-// Returns cudaGetLastError() after the launch, or cudaErrorInvalidValue for
-// a shape no tile fits.
-extern "C" int gbp_internal_tile(int V) { return internal_tile(V); }
+// takes the SDF image [sdf_h, sdf_w]. The robots per block are
+// gbp_internal_tile(V) and gbp_variable_tile(V) (0: no tile fits). A kernel
+// runs on `stream` and is not waited for. Returns cudaGetLastError() after
+// the launch, or cudaErrorInvalidValue for a shape no tile fits.
+extern "C" int gbp_internal_tile(int V) { return staged_tile<InternalStaging>(V); }
+extern "C" int gbp_variable_tile(int V) { return staged_tile<VariableStaging>(V); }
 
 extern "C" int gbp_internal_slot(const void* const* in, void* const* out, const void* sdf,
                                  int R, int V, int W, int sdf_h, int sdf_w, const float* f,
@@ -1074,17 +1160,15 @@ extern "C" int gbp_internal_slot(const void* const* in, void* const* out, const 
   a.s.x_scale = f[11];
   a.s.y_scale = f[12];
   a.s.tap_delta = f[13];
-  // 16-byte copies where every staged plane allows them
-  a.s.vec16 = R % 4 == 0;
-  for (int s = 0; s < N_STAGED; ++s)
-    a.s.vec16 = a.s.vec16 && reinterpret_cast<size_t>(a.in[staged_field(s)]) % 16 == 0;
+  a.s.vec16 = staged_vec16<InternalStaging>(a.in, R);
   if (V < 3) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (internal_tile(V)) {
-    case 8: return launch_internal<8>(a, s);
-    case 4: return launch_internal<4>(a, s);
-    case 2: return launch_internal<2>(a, s);
-    case 1: return launch_internal<1>(a, s);
+  using L = InternalStaging;
+  switch (staged_tile<L>(V)) {
+    case 8: return launch_staged<L, 8>(internal_slot_kernel<8>, a, s);
+    case 4: return launch_staged<L, 4>(internal_slot_kernel<4>, a, s);
+    case 2: return launch_staged<L, 2>(internal_slot_kernel<2>, a, s);
+    case 1: return launch_staged<L, 1>(internal_slot_kernel<1>, a, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -1095,10 +1179,17 @@ extern "C" int gbp_variable_slot(const void* const* in, void* const* out, int R,
   for (int i = 0; i < N_VAR_IN; ++i) a.in[i] = in[i];
   for (int i = 0; i < N_VAR_OUT; ++i) a.out[i] = out[i];
   a.s = scalars(R, V, 0, f, flags);
-  const dim3 block = var_block_for(V);
-  const dim3 grid((R + kVarRobotTile - 1) / kVarRobotTile);
-  variable_slot_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(a);
-  return static_cast<int>(cudaGetLastError());
+  a.s.vec16 = staged_vec16<VariableStaging>(a.in, R);
+  if (V < 3) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  using L = VariableStaging;
+  switch (staged_tile<L>(V)) {
+    case 8: return launch_staged<L, 8>(variable_slot_kernel<8>, a, s);
+    case 4: return launch_staged<L, 4>(variable_slot_kernel<4>, a, s);
+    case 2: return launch_staged<L, 2>(variable_slot_kernel<2>, a, s);
+    case 1: return launch_staged<L, 1>(variable_slot_kernel<1>, a, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 extern "C" int gbp_slot_in_fields() { return N_IN; }

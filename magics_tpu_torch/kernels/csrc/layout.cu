@@ -25,46 +25,69 @@
 // out of a 0.16 MB table that stays in L2), 1.6 us; the receiver pack
 // gather writes 62.9 MB (rows of 1,920 B out of a 2.0 MB table), 19 us;
 // receiver_compact's table gather writes 21.0 MB (rows of 640 B out of a
-// 0.66 MB table), 6.3 us.
-// Memory-bound.
+// 0.66 MB table), 6.3 us. Memory-bound.
 //
-// What the design does about it. Each thread copies one word of one output
-// row, threads of a warp on consecutive words, so a row is read and written
-// in whole coalesced segments; the word is 16 bytes when both row starts
-// and the row size allow it (every bench-shape table), else the largest of
-// 8, 4, 2 or 1 bytes that does (small test widths give rows that are not a
-// multiple of 16 bytes). A masked row is written as zeros without reading
-// the table. The index and mask of a row are re-read by each of its
-// threads; they stay in L1. The callers clip the indexes, as the JAX call
-// sites do: an index outside the table is not checked here. A grid-stride
-// loop bounds the grid. ptxas (nvcc 12.9, sm_90a): 16 registers for each
-// word size, no spills.
+// What the design does about it. One thread copies one word of one output
+// row: a block of up to 256 threads takes rpb = 256 / words whole rows (the
+// delivery's 20-word rows 12 a block, the receiver pack's 120-word rows 2),
+// or a 256-word slice of one row where a row is wider (blockIdx.y the
+// slice). The word is 16 bytes when both row starts and the row size allow
+// it (every bench-shape table), else the largest of 8, 4, 2 or 1 bytes that
+// does (small test widths give rows that are not a multiple of 16 bytes).
+//   - A thread's row and word come from one 32-bit division of its thread
+//     number by the row's width; a row's base is one 64-bit multiply.
+//   - Each thread reads its row's index and mask byte itself: the threads of
+//     a warp ask for the same few addresses, one L1 request.
+//   - A masked row is written as zeros and its table row is not read.
+//   - An output larger than kStreamBytes is written with evict-first stores
+//     (st.global.cs), which keep the table in L2: the receiver pack's 63 MB,
+//     more than the 50 MB L2 holds, so its consumer reads it from HBM
+//     whatever the stores. A smaller output is read by its consumer from L2
+//     and gets plain stores: written evict-first, receiver_compact's 21 MB
+//     table cost its consumer about as much device time per tick as
+//     re-reading it from HBM.
+// Why a word a thread: the designs that give a warp whole rows, with the
+// row's index loaded once and shuffled and several loads a lane before its
+// stores (lane groups of a power of two a row, or a batch of rows copied as
+// one run of words; scripts/gather_rows_designs.cu), were no faster at the
+// main path's three shapes in the bench ticks, by more than the spread
+// between runs, once the consumer's device time is counted; the lane groups
+// were slower there in some runs and on the response in repeated calls.
+// They were faster with L2 flushed. The times of each, beside this
+// kernel's and index_select's: PERF.md (scripts/gather_rows_designs.py).
+// The callers clip the indexes, as the JAX call sites do: an index outside
+// the table is not checked here. ptxas: chip_smoke.py prints it.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr long long kMaxBlocks = 1 << 20;
+constexpr int kThreads = 256;   // most threads a block
+constexpr long long kStreamBytes = 32LL << 20;   // outputs above it: evict-first stores
 
 template <typename W> __device__ __forceinline__ W zero_word() { return W(0); }
 template <> __device__ __forceinline__ uint4 zero_word<uint4>() { return make_uint4(0, 0, 0, 0); }
 template <> __device__ __forceinline__ uint2 zero_word<uint2>() { return make_uint2(0, 0); }
 
+// Block (x, y): rows [x * rpb, (x + 1) * rpb), words [y * span, (y + 1) *
+// span) of each; thread t copies word t % span of row t / span. span is the
+// row's width, or kThreads for a wider row; rpb = kThreads / span.
 template <typename W>
 __global__ void __launch_bounds__(kThreads) gather_rows_kernel(
     const W* __restrict__ table, const long long* __restrict__ idx,
-    const unsigned char* __restrict__ mask, W* __restrict__ out, long long n_out,
-    long long words) {
-  const long long total = n_out * words;
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x; t < total; t += stride) {
-    const long long m = t / words;
-    const long long w = t - m * words;
-    W v = zero_word<W>();
-    if (mask == nullptr || __ldg(mask + m)) v = __ldg(table + __ldg(idx + m) * words + w);
-    out[t] = v;
+    const unsigned char* __restrict__ mask, W* __restrict__ out, long long n_out, int words,
+    int span, bool stream) {
+  const int t = threadIdx.x, r = t / span, w = blockIdx.y * span + (t - r * span);
+  const long long m = (long long)blockIdx.x * (kThreads / span) + r;
+  if (w >= words || m >= n_out) return;
+  W v = zero_word<W>();
+  if (mask == nullptr || __ldg(mask + m)) v = __ldg(table + __ldg(idx + m) * words + w);
+  W* dst = out + m * words + w;
+  if (stream) {
+    __stcs(dst, v);
+  } else {
+    *dst = v;
   }
 }
 
@@ -78,14 +101,21 @@ int word_bytes(const void* table, const void* out, long long row_bytes) {
 }
 
 template <typename W>
-void launch(const void* table, const long long* idx, const unsigned char* mask, void* out,
-            long long n_out, long long row_bytes, cudaStream_t stream) {
-  const long long words = row_bytes / (long long)sizeof(W);
-  const long long total = n_out * words;
-  long long blocks = (total + kThreads - 1) / kThreads;
-  if (blocks > kMaxBlocks) blocks = kMaxBlocks;
-  gather_rows_kernel<W><<<static_cast<unsigned int>(blocks), kThreads, 0, stream>>>(
-      static_cast<const W*>(table), idx, mask, static_cast<W*>(out), n_out, words);
+int launch(const void* table, const long long* idx, const unsigned char* mask, void* out,
+           long long n_out, long long row_bytes, cudaStream_t stream) {
+  const long long n_words = row_bytes / (long long)sizeof(W);
+  if (n_words > 65535LL * kThreads) return static_cast<int>(cudaErrorInvalidValue);
+  const int words = static_cast<int>(n_words);
+  const int span = words < kThreads ? words : kThreads;
+  const int rpb = kThreads / span;
+  const long long rows_blocks = (n_out + rpb - 1) / rpb;
+  if (rows_blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  const int slices = (words + span - 1) / span;
+  gather_rows_kernel<W><<<dim3(static_cast<unsigned>(rows_blocks), slices), rpb * span, 0,
+                          stream>>>(
+      static_cast<const W*>(table), idx, mask, static_cast<W*>(out), n_out, words, span,
+      n_out * row_bytes > kStreamBytes);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -95,19 +125,20 @@ void launch(const void* table, const long long* idx, const unsigned char* mask, 
 // [0, n), `mask` n_out bools or null, `out` a contiguous [n_out, row_bytes]
 // byte matrix. The kernel runs on `stream` and is not waited for. Returns
 // cudaGetLastError() after the launch; launches nothing when there is
-// nothing to copy.
+// nothing to copy, and returns cudaErrorInvalidValue where the grid would
+// be too large (more than 2^31 - 1 blocks of rows, or a row of more than
+// 65,535 slices of 256 words).
 extern "C" int gather_rows(const void* table, const long long* idx, const unsigned char* mask,
                            void* out, long long n_out, long long row_bytes, void* stream) {
   if (n_out <= 0 || row_bytes <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (word_bytes(table, out, row_bytes)) {
-    case 16: launch<uint4>(table, idx, mask, out, n_out, row_bytes, s); break;
-    case 8: launch<uint2>(table, idx, mask, out, n_out, row_bytes, s); break;
-    case 4: launch<unsigned int>(table, idx, mask, out, n_out, row_bytes, s); break;
-    case 2: launch<unsigned short>(table, idx, mask, out, n_out, row_bytes, s); break;
-    default: launch<unsigned char>(table, idx, mask, out, n_out, row_bytes, s); break;
+    case 16: return launch<uint4>(table, idx, mask, out, n_out, row_bytes, s);
+    case 8: return launch<uint2>(table, idx, mask, out, n_out, row_bytes, s);
+    case 4: return launch<unsigned int>(table, idx, mask, out, n_out, row_bytes, s);
+    case 2: return launch<unsigned short>(table, idx, mask, out, n_out, row_bytes, s);
+    default: return launch<unsigned char>(table, idx, mask, out, n_out, row_bytes, s);
   }
-  return static_cast<int>(cudaGetLastError());
 }
 
 // The word size, in bytes, a gather of these buffers copies with.

@@ -18,9 +18,12 @@ both the same inputs.
 * `variable_slot` — the belief update of an external slot.
 
 On a CUDA tensor each wrapper checks dtype, device, shape and contiguity,
-allocates fresh outputs, launches the kernel and adds one to its entry of
-`launch_counts`; it raises on anything the kernel does not take. On a CPU
-tensor it runs the plain version. Nothing falls back from one to the other.
+allocates its outputs as views of one fresh buffer, launches the kernel and
+adds one to its entry of `launch_counts`; it raises on anything the kernel
+does not take. What a launch needs that depends only on the slot
+parameters, R and the device (shapes, scalars, ctypes arrays) is built once
+and cached. On a CPU tensor it runs the plain version. Nothing falls back
+from one to the other.
 """
 
 from __future__ import annotations
@@ -33,6 +36,7 @@ import torch
 
 from magics_tpu_torch.graph import factors as F
 from magics_tpu_torch.graph import variables as VU
+from magics_tpu_torch.kernels.build import current_stream
 
 
 @dataclasses.dataclass(frozen=True)
@@ -377,8 +381,9 @@ def _lib() -> ctypes.CDLL:
             ctypes.c_void_p,
         ]
         lib.gbp_internal_slot.restype = c_int
-        lib.gbp_internal_tile.argtypes = [c_int]
-        lib.gbp_internal_tile.restype = c_int
+        for tile in (lib.gbp_internal_tile, lib.gbp_variable_tile):
+            tile.argtypes = [c_int]
+            tile.restype = c_int
         lib.gbp_variable_slot.argtypes = [
             ptrs, ptrs, c_int, c_int, floats, ints, ctypes.c_void_p
         ]
@@ -400,31 +405,9 @@ def _lib() -> ctypes.CDLL:
     return _LIB
 
 
-def _checked_inputs(h: dict, names, V: int, W: int) -> tuple[list[torch.Tensor], int]:
-    """The kernel's inputs in order, after checking device, dtype, shape and
-    contiguity; returns them with R."""
-    R = h["gate"].shape[-1]
-    device = h["gate"].device
-    shapes = field_shapes(V, R, W)
-    ins = []
-    for name in names:
-        x = h[name]
-        want = torch.int32 if name in _INT_FIELDS else torch.float32
-        if x.device != device:
-            raise ValueError(f"{name} is on {x.device}, gate on {device}")
-        if x.dtype != want:
-            raise TypeError(f"{name} is {x.dtype}; the kernel takes {want}")
-        if tuple(x.shape) != shapes[name]:
-            raise ValueError(f"{name} has shape {tuple(x.shape)}, expected {shapes[name]}")
-        if not x.is_contiguous():
-            raise ValueError(f"{name} is not contiguous")
-        ins.append(x)
-    return ins, R
-
-
 def _scalars(p: SlotParams):
     inv_s2 = 1.0 / (p.sigma_dynamics * p.sigma_dynamics)
-    f = (ctypes.c_float * 9)(
+    f = (
         12.0 * inv_s2, -6.0 * inv_s2, 4.0 * inv_s2,
         p.obstacle_delta, 1.0 / (p.sigma_obstacle * p.sigma_obstacle),
         1.0 / (p.sigma_tracking * p.sigma_tracking),
@@ -434,10 +417,6 @@ def _scalars(p: SlotParams):
         int(p.dynamic_enabled), int(p.obstacle_enabled), int(p.tracking_enabled)
     )
     return f, flags
-
-
-def _ptrs(tensors) -> ctypes.Array:
-    return (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
 
 
 def _check_launch(rc: int, name: str) -> None:
@@ -452,46 +431,41 @@ def _device_kind(h: dict) -> str:
     return dev.type
 
 
-class _InternalPlan:
-    """What an internal-slot launch needs that depends only on the slot
-    parameters, R, the SDF's shape, the world size and the device: the
-    inputs' expected shapes and types, the outputs' places in one buffer,
-    and the ctypes argument arrays (filled anew at every call)."""
+class _Plan:
+    """What a slot launch needs that depends only on the slot parameters, R
+    and the device: the inputs' expected shapes and types, the outputs'
+    places in one buffer, the float scalars and flags, and the ctypes
+    argument arrays (filled anew at every call)."""
 
-    def __init__(self, p: SlotParams, R: int, sdf_shape, world, device) -> None:
+    def __init__(self, p: SlotParams, R: int, device, in_fields, out_fields, f_extra=()) -> None:
         V, W = p.n_vars, p.max_waypoints
         shapes = field_shapes(V, R, W)
         self.device = device
+        self.stream_index = device.index if device.index is not None else 0
         self.R, self.V, self.W = R, V, W
-        self.sdf_shape = tuple(sdf_shape)
         self.inputs = [
             (n, torch.Size(shapes[n]), torch.int32 if n in _INT_FIELDS else torch.float32)
-            for n in _KERNEL_IN_FIELDS
+            for n in in_fields
         ]
         # every output a contiguous slice of one float32 buffer, 256-byte
         # aligned (int fields are viewed as int32)
         self.outputs, offset = [], 0
-        for n in _OUT_FIELDS:
+        for n in out_fields:
             shape = torch.Size(shapes[n])
             self.outputs.append((n, shape, _contiguous(shape), offset, n in _INT_FIELDS))
             offset += -(-shape.numel() // 64) * 64
         self.numel = offset
-        self.in_ptrs = (ctypes.c_void_p * len(_KERNEL_IN_FIELDS))()
-        self.out_ptrs = (ctypes.c_void_p * len(_OUT_FIELDS))()
+        self.in_ptrs = (ctypes.c_void_p * len(in_fields))()
+        self.out_ptrs = (ctypes.c_void_p * len(out_fields))()
         self.out_offsets = [4 * off for _, _, _, off, _ in self.outputs]
-        H, Ws = self.sdf_shape
-        ww, wh = world
         f, self.flags = _scalars(p)
-        # the taps' constants as obstacle_taps rounds them against float32
-        self.f = (ctypes.c_float * 14)(
-            *f, ww / 2.0, wh / 2.0, Ws / ww, H / wh, F.obstacle_delta((H, Ws), world)
-        )
+        self.f = (ctypes.c_float * (len(f) + len(f_extra)))(*f, *f_extra)
 
-    def check(self, h: dict, sdf: torch.Tensor) -> list[torch.Tensor]:
-        """The kernel's inputs in order, after checking device, dtype, shape
-        and contiguity; raises on anything the kernel does not take."""
-        ins = []
-        for name, shape, dtype in self.inputs:
+    def bind(self, h: dict) -> torch.Tensor:
+        """Point the ctypes arrays at `h`'s inputs, after checking device,
+        dtype, shape and contiguity (raises on anything the kernel does not
+        take), and at a fresh output buffer, which it returns."""
+        for j, (name, shape, dtype) in enumerate(self.inputs):
             x = h[name]
             if x.device != self.device:
                 raise ValueError(f"{name} is on {x.device}, gate on {self.device}")
@@ -501,13 +475,39 @@ class _InternalPlan:
                 raise ValueError(f"{name} has shape {tuple(x.shape)}, expected {tuple(shape)}")
             if not x.is_contiguous():
                 raise ValueError(f"{name} is not contiguous")
-            ins.append(x)
+            self.in_ptrs[j] = x.data_ptr()
+        buf = torch.empty(self.numel, dtype=torch.float32, device=self.device)
+        base = buf.data_ptr()
+        for j, off in enumerate(self.out_offsets):
+            self.out_ptrs[j] = base + off
+        return buf
+
+    def views(self, buf: torch.Tensor) -> dict:
+        """The outputs, as views of the buffer."""
+        ibuf = buf.view(torch.int32)
+        return {
+            name: (ibuf if is_int else buf).as_strided(shape, stride, off)
+            for name, shape, stride, off, is_int in self.outputs
+        }
+
+
+class _InternalPlan(_Plan):
+    """The internal slot's plan, for one SDF shape and world size."""
+
+    def __init__(self, p: SlotParams, R: int, sdf_shape, world, device) -> None:
+        H, Ws = sdf_shape
+        ww, wh = world
+        self.sdf_shape = tuple(sdf_shape)
+        # the taps' constants as obstacle_taps rounds them against float32
+        taps = (ww / 2.0, wh / 2.0, Ws / ww, H / wh, F.obstacle_delta((H, Ws), world))
+        super().__init__(p, R, device, _KERNEL_IN_FIELDS, _OUT_FIELDS, taps)
+
+    def check_sdf(self, sdf: torch.Tensor) -> None:
         if sdf.device != self.device or sdf.dtype != torch.float32 or not sdf.is_contiguous():
             raise ValueError(
                 f"the SDF must be a contiguous float32 tensor on {self.device}, "
                 f"got {sdf.dtype} on {sdf.device}"
             )
-        return ins
 
 
 def _contiguous(shape) -> tuple[int, ...]:
@@ -520,7 +520,18 @@ def _contiguous(shape) -> tuple[int, ...]:
 
 @functools.lru_cache(maxsize=64)
 def _internal_plan(p: SlotParams, R: int, sdf_shape, world, device) -> _InternalPlan:
+    if _lib().gbp_internal_tile(p.n_vars) == 0:
+        raise ValueError(f"internal_slot: not even one robot's inputs at V={p.n_vars} fit "
+                         "in shared memory")
     return _InternalPlan(p, R, sdf_shape, world, device)
+
+
+@functools.lru_cache(maxsize=64)
+def _variable_plan(p: SlotParams, R: int, device) -> _Plan:
+    if _lib().gbp_variable_tile(p.n_vars) == 0:
+        raise ValueError(f"variable_slot: not even one robot's inputs at V={p.n_vars} fit "
+                         "in shared memory")
+    return _Plan(p, R, device, _VAR_IN_FIELDS, _VAR_OUT_FIELDS)
 
 
 def internal_slot(
@@ -539,45 +550,34 @@ def internal_slot(
         raise ValueError(f"the SDF must be [H, W], got shape {tuple(sdf.shape)}")
     gate = h["gate"]
     plan = _internal_plan(p, gate.shape[-1], tuple(sdf.shape), tuple(world), gate.device)
-    ins = plan.check(h, sdf)
-    for j, x in enumerate(ins):
-        plan.in_ptrs[j] = x.data_ptr()
-    buf = torch.empty(plan.numel, dtype=torch.float32, device=plan.device)
-    base = buf.data_ptr()
-    for j, off in enumerate(plan.out_offsets):
-        plan.out_ptrs[j] = base + off
+    buf = plan.bind(h)
+    plan.check_sdf(sdf)
     H, Ws = plan.sdf_shape
-    stream = torch.cuda.current_stream(plan.device).cuda_stream
     rc = _lib().gbp_internal_slot(
         plan.in_ptrs, plan.out_ptrs, sdf.data_ptr(), plan.R, plan.V, plan.W, H, Ws,
-        plan.f, plan.flags, stream,
+        plan.f, plan.flags, current_stream(plan.stream_index),
     )
     _check_launch(rc, "internal_slot")
     launch_counts["internal_slot"] += 1
-    ibuf = buf.view(torch.int32)
-    return {
-        name: (ibuf if is_int else buf).as_strided(shape, stride, off)
-        for name, shape, stride, off, is_int in plan.outputs
-    }
+    return plan.views(buf)
 
 
 def variable_slot(h: dict, p: SlotParams) -> dict:
     """Run the external slot's belief update: the CUDA kernel on CUDA
     tensors, the plain version on CPU tensors. `h` maps _VAR_IN_FIELDS to
-    hot-layout tensors; returns a dict of _VAR_OUT_FIELDS (fresh tensors)."""
+    hot-layout tensors (other keys are ignored); returns a dict of
+    _VAR_OUT_FIELDS (fresh tensors, views of one buffer)."""
     if _device_kind(h) == "cpu":
         return variable_slot_reference(h, p)
-    V = p.n_vars
-    if V < 3:
-        raise ValueError(f"the slot kernel needs V >= 3, got {V}")
-    ins, R = _checked_inputs(h, _VAR_IN_FIELDS, V, p.max_waypoints)
-    outs = [
-        torch.empty(field_shapes(V, R, 0)[n], device=ins[0].device, dtype=torch.float32)
-        for n in _VAR_OUT_FIELDS
-    ]
-    f, flags = _scalars(p)
-    stream = torch.cuda.current_stream(ins[0].device).cuda_stream
-    rc = _lib().gbp_variable_slot(_ptrs(ins), _ptrs(outs), R, V, f, flags, stream)
+    if p.n_vars < 3:
+        raise ValueError(f"the slot kernel needs V >= 3, got {p.n_vars}")
+    gate = h["gate"]
+    plan = _variable_plan(p, gate.shape[-1], gate.device)
+    buf = plan.bind(h)
+    rc = _lib().gbp_variable_slot(
+        plan.in_ptrs, plan.out_ptrs, plan.R, plan.V, plan.f, plan.flags,
+        current_stream(plan.stream_index),
+    )
     _check_launch(rc, "variable_slot")
     launch_counts["variable_slot"] += 1
-    return dict(zip(_VAR_OUT_FIELDS, outs))
+    return plan.views(buf)

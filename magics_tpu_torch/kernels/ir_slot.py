@@ -28,6 +28,7 @@ import ctypes
 import torch
 
 from magics_tpu_torch.graph import factors as F
+from magics_tpu_torch.kernels.build import current_stream
 from magics_tpu_torch.parallel.comm import LOCAL
 
 #: kernel launches since the last `reset_launch_counts()`
@@ -163,11 +164,11 @@ def interrobot_slot(
     # rounded to float where it meets a float32 tensor
     alpha = 1.0 / (sigma * sigma)
     rtol = 1e-4
-    stream = torch.cuda.current_stream(seeded.device).cuda_stream
     rc = _lib().ir_interrobot_slot(
         *(inputs[n].data_ptr() for n in ("seeded", "p_ext", "snap_mu", "snap_eta",
                                          "snap_lam", "safety", "gids")),
-        out.data_ptr(), R, K, V, alpha, 4.0 * alpha, rtol * alpha, stream,
+        out.data_ptr(), R, K, V, alpha, 4.0 * alpha, rtol * alpha,
+        current_stream(seeded.get_device()),
     )
     if rc != 0:
         raise RuntimeError(f"interrobot_slot kernel launch failed: cudaError {rc}")

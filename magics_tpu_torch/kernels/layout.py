@@ -14,10 +14,11 @@ and response gather (`tick.deliver_responses`) and the receiver exchanges'
 table gathers, whatever `use_pallas` says (on the TPU the pin runs on every
 run too). The callers clip the indexes, as the JAX call sites do.
 
-On CUDA tensors the wrapper checks device, dtype, shape and contiguity,
-allocates a fresh output, launches the kernel on the current stream and
-adds one to `launch_counts`; it raises on anything the kernel does not take
-and on a failed launch. On CPU tensors it runs the plain version.
+On CUDA tensors the wrapper checks device, dtype, shape and contiguity
+(`_check`, cheap tests first), allocates a fresh output, launches the
+kernel on the current stream and adds one to `launch_counts`; it raises on
+anything the kernel does not take and on a failed launch. On CPU tensors
+it runs the plain version.
 """
 
 from __future__ import annotations
@@ -25,6 +26,8 @@ from __future__ import annotations
 import ctypes
 
 import torch
+
+from magics_tpu_torch.kernels.build import current_stream
 
 #: kernel launches since the last `reset_launch_counts()`
 launch_counts = {"gather_rows": 0}
@@ -47,11 +50,12 @@ def gather_rows_reference(
 
 
 _LIB: ctypes.CDLL | None = None
+_GATHER = None   # the bound gather_rows entry point of _LIB
 
 
 def _lib() -> ctypes.CDLL:
     """The kernel library, built and bound on first use."""
-    global _LIB
+    global _LIB, _GATHER
     if _LIB is None:
         from magics_tpu_torch.kernels.build import load
 
@@ -61,11 +65,24 @@ def _lib() -> ctypes.CDLL:
         lib.gather_rows.restype = ctypes.c_int
         lib.gather_rows_word_bytes.argtypes = [ptr, ptr, i64]
         lib.gather_rows_word_bytes.restype = ctypes.c_int
+        _GATHER = lib.gather_rows
         _LIB = lib
     return _LIB
 
 
-def _check(table: torch.Tensor, idx: torch.Tensor, mask: torch.Tensor | None) -> None:
+def _check(table: torch.Tensor, idx: torch.Tensor, mask: torch.Tensor | None) -> bool:
+    """True where the kernel takes these tensors as they are (on the card),
+    False where they lie on the CPU; raise on anything the gather does not
+    take. A call the kernel takes returns at the first test, which reads
+    only cached tensor attributes: the wrapper runs 20 times a tick."""
+    dev = table.get_device()
+    if (dev >= 0 and table.ndim == 2 and table.is_contiguous()
+            and idx.dtype == torch.int64 and idx.ndim == 1 and idx.is_contiguous()
+            and idx.get_device() == dev
+            and (mask is None or (
+                mask.dtype == torch.bool and mask.ndim == 1 and mask.shape[0] == idx.shape[0]
+                and mask.is_contiguous() and mask.get_device() == dev))):
+        return True
     if table.ndim != 2:
         raise ValueError(f"table must be 2-D [n, m], got shape {tuple(table.shape)}")
     if idx.ndim != 1 or idx.dtype != torch.int64:
@@ -75,8 +92,13 @@ def _check(table: torch.Tensor, idx: torch.Tensor, mask: torch.Tensor | None) ->
     for name, x in (("idx", idx), ("mask", mask)):
         if x is not None and x.device != table.device:
             raise ValueError(f"{name} is on {x.device}, table on {table.device}")
-    if table.device.type not in ("cuda", "cpu"):
+    if table.device.type != "cpu":
+        # on the card only contiguity is left to refuse
+        for name, x in (("table", table), ("idx", idx), ("mask", mask)):
+            if x is not None and not x.is_contiguous():
+                raise ValueError(f"{name} is not contiguous")
         raise ValueError(f"no gather kernel for device {table.device}")
+    return False
 
 
 def gather_rows(
@@ -86,19 +108,17 @@ def gather_rows(
     on CUDA tensors, the plain version on CPU tensors. `table` [n, m] of any
     dtype, `idx` [M] int64 in [0, n), `mask` [M] bool or None; returns a
     fresh [M, m] tensor."""
-    _check(table, idx, mask)
-    if table.device.type == "cpu":
+    if not _check(table, idx, mask):
         return gather_rows_reference(table, idx, mask)
-    for name, x in (("table", table), ("idx", idx), ("mask", mask)):
-        if x is not None and not x.is_contiguous():
-            raise ValueError(f"{name} is not contiguous")
-    out = torch.empty((idx.shape[0], table.shape[1]), dtype=table.dtype, device=table.device)
+    out = table.new_empty((idx.shape[0], table.shape[1]))
     if out.numel() == 0:
         return out
-    stream = torch.cuda.current_stream(table.device).cuda_stream
-    rc = _lib().gather_rows(
+    if _GATHER is None:
+        _lib()
+    rc = _GATHER(
         table.data_ptr(), idx.data_ptr(), None if mask is None else mask.data_ptr(),
-        out.data_ptr(), idx.shape[0], table.shape[1] * table.element_size(), stream,
+        out.data_ptr(), idx.shape[0], table.shape[1] * table.element_size(),
+        current_stream(table.get_device()),
     )
     if rc != 0:
         raise RuntimeError(f"gather_rows kernel launch failed: cudaError {rc}")

@@ -54,12 +54,10 @@ def profile(fn, attempts: int = 3) -> dict:
 L2_FLUSH_BYTES = 64 << 20
 
 
-def kernel_device_us(fn, kernel: str, reps: int = 20, cold: bool = False) -> float:
-    """Device time per launch of the kernels whose name contains `kernel`,
-    over `reps` calls of `fn` (after one call to warm up): the mean over the
-    launches the profiler recorded (it may miss one at the window's edge).
-    With `cold`, a 64 MB fill before each call evicts the inputs from L2,
-    for a kernel whose caller finds them cold."""
+def _profile_calls(fn, reps: int, cold: bool) -> dict:
+    """The profile's kernels over `reps` calls of `fn` (after one call to
+    warm up), with `cold` each after a 64 MB fill that evicts the inputs
+    from L2."""
     fn()
     flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda") if cold else None
 
@@ -69,9 +67,37 @@ def kernel_device_us(fn, kernel: str, reps: int = 20, cold: bool = False) -> flo
                 flush.zero_()
             fn()
 
-    out = profile(calls)
-    hits = [(n, us) for name, (n, us) in out["kernels"].items() if kernel in name]
+    return profile(calls)["kernels"]
+
+
+def kernel_device_us(fn, kernel: str, reps: int = 20, cold: bool = False) -> float:
+    """Device time per launch of the kernels whose name contains `kernel`,
+    over `reps` calls of `fn` (after one call to warm up): the mean over the
+    launches the profiler recorded (it may miss one at the window's edge).
+    With `cold`, a 64 MB fill before each call evicts the inputs from L2,
+    for a kernel whose caller finds them cold."""
+    hits = [(n, us) for name, (n, us) in _profile_calls(fn, reps, cold).items()
+            if kernel in name]
     count = sum(n for n, _ in hits)
     if count == 0:
         raise RuntimeError(f"{kernel}: no launch profiled in {reps} calls")
     return sum(us for _, us in hits) / count
+
+
+def call_device_us(fn, reps: int = 20) -> tuple[float, float, list[str]]:
+    """Device time per call of `fn`, whatever kernels it launches (a library
+    call's, whose names this code does not choose): in repeated calls, and
+    with L2 flushed before each call, counting there only the kernels of
+    the repeated calls (not the fill's). Each is the kernels' device time
+    over the calls the profiler recorded (the launches of the most launched
+    kernel). Returns both with the kernels' names."""
+    warm = _profile_calls(fn, reps, False)
+    cold = _profile_calls(fn, reps, True)
+
+    def per_call(kernels: dict) -> float:
+        hits = [v for name, v in kernels.items() if name in warm]
+        if not hits:
+            raise RuntimeError(f"no kernel of the call profiled in {reps} calls")
+        return sum(us for _, us in hits) / max(n for n, _ in hits)
+
+    return per_call(warm), per_call(cold), sorted(warm)

@@ -11,9 +11,12 @@ older checkout does not default to) and the timing from
 `chip_smoke.time_slice` (ms per tick over 3 timed chunks of 20 ticks after 2
 warm-up chunks; cudaLaunchKernel calls, device time per tick and each
 kernel's device time per launch from a 2-tick torch.profiler window). Under
-"sender" it adds the internal-slot wrapper's host time per call over 10
-ticks (no synchronisation, so its host work alone) and 10 ticks with
-synchronised host timers around each phase of the hot loop (ms per tick).
+"sender" it adds the internal-slot, variable-slot and row-gather wrappers'
+host time per call over 10 ticks (no synchronisation, so their host work alone) and 10
+ticks with synchronised host timers around each phase of the hot loop (ms
+per tick). Last, the variable-slot kernel and the row gather alone on
+chip_smoke.py's inputs, in repeated calls and with L2 flushed before each
+(`kernels_alone`).
 
 Prints one `RESULT {json}` line per checkout and a summary, and with
 `--json` writes them all to that file. chip_smoke.py and the profiler
@@ -29,9 +32,13 @@ import json
 import subprocess
 import sys
 import time
+from dataclasses import replace
 from pathlib import Path
 
 HERE = Path(__file__).resolve().parents[1]
+# K2's chain lengths on both sides of its smallest tile's limit: 2 robots a
+# block up to V = 277, 1 from 278 (csrc/gbp_slot.cu)
+LONG_CHAINS = (277, 278)
 KERNELS = ("internal_slot_kernel", "variable_slot_kernel", "interrobot_slot_kernel",
            "gather_rows_kernel")
 
@@ -109,12 +116,13 @@ def measure(tree: Path) -> dict:
             for k in KERNELS
         }
         if exchange == "sender":
-            rec, restore = _timers([(HOT, "internal_slot")], sync=False)
+            rec, restore = _timers([(HOT, "internal_slot"), (HOT, "variable_slot"),
+                                    (T, "gather_rows")], sync=False)
             state = T.run_ticks(state, sdf, params, 10)
             torch.cuda.synchronize()
             restore()
-            calls, secs = rec["internal_slot"]
-            res["internal_slot_wrapper_host_ms_per_call"] = 1e3 * secs / calls
+            for name, (calls, secs) in rec.items():
+                res[f"{name}_wrapper_host_ms_per_call"] = 1e3 * secs / calls
             phases = [(F, "obstacle_taps"), (HOT, "internal_slot"), (HOT, "variable_slot"),
                       (T, "external_factor_pass"), (HOT, "_ext_sum_hot"),
                       (T, "seed_cavities"), (T, "deliver_responses"),
@@ -128,7 +136,64 @@ def measure(tree: Path) -> dict:
             restore()
             res["phase_ms_per_tick"] = {n: [c / 10, 1e3 * s / 10] for n, (c, s) in rec.items()}
         out[exchange] = res
+    out["kernels_alone"] = kernels_alone(torch, smoke, prof)
     return out
+
+
+def longer_chain(var_in: dict, sp, V: int):
+    """The variable slot's inputs and SlotParams on a chain of V variables,
+    each variable and factor taking the data of its place modulo the
+    original chain (as tests/test_torch_kernels_cuda.py makes them)."""
+    import numpy as np
+    import torch
+
+    V0 = sp.n_vars
+    at = {V0: np.arange(V) % V0,   # by plane length: variables, dynamic, interior factors
+          V0 - 1: np.minimum(np.arange(V - 1) % V0, V0 - 2),
+          V0 - 2: np.clip((np.arange(V - 2) + 1) % V0 - 1, 0, V0 - 3)}
+    out = {}
+    for name, x in var_in.items():
+        if name != "gate":
+            idx = torch.as_tensor(at[x.shape[-2]], device=x.device)
+            x = x.index_select(x.ndim - 2, idx).contiguous()
+        out[name] = x
+    return out, replace(sp, n_vars=V)
+
+
+def kernels_alone(torch, smoke, prof) -> dict:
+    """The checkout's variable-slot kernel and row gather called alone on
+    chip_smoke.py's inputs (K2's from the receiver_compact bench state after
+    3 ticks, also on that chain made LONG_CHAINS variables long; the
+    gather's four call sites from the sender's): device us per launch [in
+    repeated calls, with L2 flushed before each]."""
+    from magics_tpu_torch.graph import tick as T
+    from magics_tpu_torch.kernels import gbp_slot as G
+    from magics_tpu_torch.kernels import hot as HOT
+    from magics_tpu_torch.kernels import layout as L
+
+    def us(fn, kernel):
+        return [prof.kernel_device_us(fn, kernel), prof.kernel_device_us(fn, kernel, cold=True)]
+
+    res = {}
+    for exchange in ("receiver_compact", "sender"):
+        params, state, sdf = smoke.bench_scenario(torch, exchange, device="cuda",
+                                                  use_pallas=True)
+        state = T.run_ticks(state, sdf, params, 3)
+        if exchange == "receiver_compact":
+            slot_in = smoke.slot_inputs(state, params)
+            var_in = {n: slot_in[n] for n in G._VAR_IN_FIELDS}
+            sp = HOT.slot_params(params)
+            res["variable_slot"] = us(lambda: G.variable_slot(var_in, sp), "variable_slot_kernel")
+            for V in LONG_CHAINS:
+                var_v, sp_v = longer_chain(var_in, sp, V)
+                res[f"variable_slot V={V}"] = us(lambda: G.variable_slot(var_v, sp_v),
+                                                 "variable_slot_kernel")
+                del var_v
+        else:
+            for site, (tab, idx, m) in smoke.gather_sites(torch, state).items():
+                res[f"gather_rows {site}"] = us(lambda: L.gather_rows(tab, idx, m),
+                                                "gather_rows_kernel")
+    return res
 
 
 def main() -> int:
@@ -141,8 +206,9 @@ def main() -> int:
         out, args = Path(args[1]), args[2:]
     results = []
     for tree in args:
-        proc = subprocess.run([sys.executable, __file__, "--one", tree], capture_output=True,
-                              text=True, cwd=HERE)
+        # absolute, as the child runs in this script's checkout
+        proc = subprocess.run([sys.executable, __file__, "--one", str(Path(tree).resolve())],
+                              capture_output=True, text=True, cwd=HERE)
         lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("RESULT ")]
         if proc.returncode != 0 or not lines:
             print(proc.stdout[-4000:], proc.stderr[-4000:], sep="\n", flush=True)
@@ -153,9 +219,14 @@ def main() -> int:
         s, rc = r["sender"], r["receiver_compact"]
         print(f"{r['tree']}: sender {s['ms_per_tick']:.3f} ms/tick, "
               f"{s['launches_per_tick']:.1f} launches/tick, device {s['device_ms_per_tick']:.3f} "
-              f"ms/tick, K1 wrapper {s['internal_slot_wrapper_host_ms_per_call']:.4f} ms/call; "
+              f"ms/tick, K1 wrapper {s['internal_slot_wrapper_host_ms_per_call']:.4f} ms/call, "
+              f"K2 wrapper {s['variable_slot_wrapper_host_ms_per_call']:.4f} ms/call, "
+              f"K4 wrapper {s['gather_rows_wrapper_host_ms_per_call']:.4f} ms/call; "
               f"receiver_compact {rc['ms_per_tick']:.3f} ms/tick, "
               f"{rc['launches_per_tick']:.1f} launches/tick ({r['card']})", flush=True)
+        print(f"{r['tree']}: alone, device us per launch repeated / L2 flushed: "
+              + "; ".join(f"{k} {w:.3f} / {c:.3f}" for k, (w, c) in r["kernels_alone"].items()),
+              flush=True)
     if out is not None:
         out.parent.mkdir(parents=True, exist_ok=True)
         out.write_text(json.dumps(results, indent=1))

@@ -188,13 +188,34 @@ def test_fused_plain_version_matches_taps_and_pallas(hot_inputs, tracking):
     assert np.abs(np.asarray(want["obs_f2v_lam"])).max() > 0
 
 
-def test_variable_slot_reference_matches_pallas(hot_inputs):
-    arrays, kw, _, _ = hot_inputs
+def _variable_slot_against_pallas(arrays: dict, kw: dict) -> dict:
     jp = JG.SlotParams(rtol=1e-4, **kw)
     run = jax.jit(lambda h: JG.variable_slot(h, jp, r_tile=R_TILE, interpret=True))
     want = run({n: jnp.asarray(arrays[n]) for n in JG._VAR_IN_FIELDS})
     got = TG.variable_slot(_torch_dict(arrays, TG._VAR_IN_FIELDS), TG.SlotParams(**kw))
     _compare(want, got)
+    return got
+
+
+def test_variable_slot_reference_matches_pallas(hot_inputs):
+    arrays, kw, _, _ = hot_inputs
+    _variable_slot_against_pallas(arrays, kw)
+
+
+def test_variable_slot_reference_matches_pallas_gated_off(hot_inputs):
+    """Part of the swarm gated off (robots 1 and 4, besides the padding):
+    those keep their old beliefs, the others update."""
+    arrays, kw, _, _ = hot_inputs
+    gate = arrays["gate"].copy()
+    assert (gate[0, [0, 1, 4]] > 0).all()
+    gate[0, [1, 4]] = 0.0
+    got = _variable_slot_against_pallas({**arrays, "gate": gate}, kw)
+    for name in TG._VAR_OUT_FIELDS:
+        old = arrays[name][..., [1, 4]]
+        np.testing.assert_array_equal(got[name][..., [1, 4]].numpy(), old)
+    on = [0, 2, 3, 5]
+    assert any(not np.array_equal(got[n][..., on].numpy(), arrays[n][..., on])
+               for n in TG._VAR_OUT_FIELDS)
 
 
 def test_scaled_error_sees_interior_faults(hot_inputs):

@@ -11,7 +11,11 @@ its obstacle linearisation points on pixel edges, and is held against its
 fused plain version (the SDF taps, then the reference); for tracking also a
 multi-segment corner route; for the inter-robot message table the crossing
 in "sender" mode and a synthetic input at the bench shapes; chains long
-enough to force the internal slot's smaller robot tiles. Tolerance: each
+enough to force both slot kernels' smaller robot tiles, and the
+crossing's slot inputs repeated over a V=21 chain and R=1024 (or a ragged
+1021) robots for the variable slot at the bench shape; the row gather at
+the bench widths and at row widths from a few words to many warps' worth,
+for each word size. Tolerance: each
 vector or matrix of each field within RTOL of its own scale
 (`gbp_slot.scaled_error`; float32 roundoff in another summation order,
 chip_smoke.py states why); for the message table, whose kernel repeats its
@@ -182,8 +186,13 @@ def longer_chain(slot_in: dict, sp, copies: int):
     original chain (the dynamic factors joining two copies that of its last
     one, the interior factors on a copy's end variables those of its first
     and last), so all but the joins compute what the original's do."""
+    return chain_of(slot_in, sp, copies * sp.n_vars)
+
+
+def chain_of(slot_in: dict, sp, V: int):
+    """The slot inputs on a chain of V variables, each variable and factor
+    taking the data of its place modulo the original chain (longer_chain)."""
     V0 = sp.n_vars
-    V = copies * V0
     at = {
         "var": np.arange(V) % V0,
         "dyn": np.minimum(np.arange(V - 1) % V0, V0 - 2),
@@ -201,6 +210,14 @@ def longer_chain(slot_in: dict, sp, copies: int):
             x = x.index_select(x.ndim - 2, idx).contiguous()
         out[name] = x
     return out, replace(sp, n_vars=V)
+
+
+def swarm_of(h: dict, R: int) -> dict:
+    """The fields of `h` for R robots, robot r taking the data of robot r
+    modulo the original swarm."""
+    R0 = h["gate"].shape[-1]
+    idx = torch.arange(R, device=h["gate"].device) % R0
+    return {n: x.index_select(x.ndim - 1, idx).contiguous() for n, x in h.items()}
 
 
 @pytest.mark.parametrize("min_vars, tile", [(105, 4), (209, 2), (416, 1)])
@@ -236,6 +253,45 @@ def test_variable_slot_kernel_matches_plain(slot_inputs):
     torch.cuda.synchronize()
     assert G.launch_counts["variable_slot"] == before + 1
     _assert_close(got, G.variable_slot_reference(var_in, sp))
+
+
+def _assert_variable_slot(h: dict, sp) -> None:
+    """The variable slot's kernel against its plain version, and a gated-off
+    robot's old belief passed through bit for bit."""
+    got = G.variable_slot(h, sp)
+    torch.cuda.synchronize()
+    _assert_close(got, G.variable_slot_reference(h, sp))
+    off = h["gate"][0] <= 0
+    for name, x in got.items():
+        assert torch.equal(x[..., off], h[name][..., off]), name
+
+
+@pytest.mark.parametrize("R, gates", [(1024, "on"), (1024, "crossing"), (1021, "crossing"),
+                                      (1021, "off")])
+def test_variable_slot_kernel_bench_shapes(slot_inputs, R, gates):
+    """The bench shape (V=21, R=1024: whole 8-robot tiles, 16-byte copies)
+    and a ragged R=1021 (4-byte copies, a partial last tile), from the
+    crossing's inputs repeated over the chain and the swarm; every robot
+    gated on, the crossing's gates (every fifth robot off) or every robot
+    off."""
+    slot_in, sp, _, _ = slot_inputs
+    h, sp = chain_of(slot_in, sp, 21)
+    h = swarm_of({n: h[n] for n in G._VAR_IN_FIELDS}, R)
+    if gates != "crossing":
+        h["gate"] = torch.full_like(h["gate"], 1.0 if gates == "on" else 0.0)
+    _assert_variable_slot(h, sp)
+
+
+@pytest.mark.parametrize("V, tile", [(3, 8), (70, 8), (71, 4), (139, 4), (140, 2), (300, 1)])
+def test_variable_slot_kernel_smaller_tiles(slot_inputs, V, tile):
+    """The shortest chain, and chains on both sides of each tile size's
+    limit (8 robots a block up to V = 70, then 4, 2 and 1; a block of 512
+    threads passes over a chain longer than 512 / (2 x tile)): the
+    crossing's chain repeated to V, the crossing's gates (some robots off)."""
+    slot_in, sp, _, _ = slot_inputs
+    h, sp = chain_of(slot_in, sp, V)
+    assert G._lib().gbp_variable_tile(V) == tile
+    _assert_variable_slot({n: h[n] for n in G._VAR_IN_FIELDS}, sp)
 
 
 @pytest.mark.parametrize("fault", ["dtype", "contiguity", "shape", "sdf"])
@@ -363,6 +419,40 @@ def test_gather_rows_kernel_is_index_select(device, dtype, width, offset, word, 
     assert L.launch_counts["gather_rows"] == before + 1
     assert L.word_bytes(table, got) == word
     assert got.dtype == dtype and torch.equal(got, L.gather_rows_reference(table, idx, mask))
+
+
+@pytest.mark.parametrize("word", [16, 8, 4, 2, 1])
+@pytest.mark.parametrize(
+    "words",
+    [
+        3,      # 85 rows a block, a warp's lanes across 11 or 12 rows
+        10,     # the response's width: 25 rows a block
+        20,     # the delivery's width: 12 rows a block, a warp across 2 or 3 rows
+        40,     # the compact table's width: 6 rows a block
+        50,     # a row wider than a warp: 5 rows a block
+        120,    # the receiver pack's width: 2 rows a block
+        257,    # a row of 2 slices of 256 words, the second of one word
+        1500,   # a row of 6 slices of 256 words, the last one partial
+    ],
+)
+@pytest.mark.parametrize("masked", [False, True])
+def test_gather_rows_kernel_row_widths(device, word, words, masked):
+    """Rows of `words` words of `word` bytes, from a byte table whose start
+    is aligned to `word` bytes and no more, so the kernel copies with that
+    word; 333 output rows, so the last block of rows is partial (333 is a
+    multiple of none of the 85, 25, 12, 6, 5 and 2 rows a block takes)."""
+    g = torch.Generator(device=device).manual_seed(words + word)
+    n, m, row = 67, 333, words * word
+    offset = 0 if word == 16 else word
+    flat = torch.randint(0, 256, (n * row + offset,), generator=g, device=device,
+                         dtype=torch.uint8)
+    table = flat[offset:].view(n, row)
+    idx = torch.randint(0, n, (m,), generator=g, device=device)
+    mask = torch.rand(m, generator=g, device=device) > 0.4 if masked else None
+    got = L.gather_rows(table, idx, mask)
+    torch.cuda.synchronize()
+    assert L.word_bytes(table, got) == word
+    assert torch.equal(got, L.gather_rows_reference(table, idx, mask))
 
 
 def test_default_scenario_runs_the_kernels(device):
