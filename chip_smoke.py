@@ -35,6 +35,30 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    message table against its plain version once more, on the slice's own
    final state (live factors, some cavities unseeded).
 
+6. Graph vs eager: after each slice, 10-tick chunks of its workload
+   captured as one CUDA graph (graph/chunk.py:compile_ticks) from the
+   slice's final state: the capture's launch counts (10 x the per-tick
+   ones), 2 replays bit-equal to 20 eager ticks in every state field, then
+   3 timed chunks (host clock, CUDA events over a replay, torch.profiler of
+   one replay where it records the graph's kernels) and a metric line with
+   "runner": "graph" (phase 5's carries "runner": "eager").
+7. Grid vs dense: 20 eager ticks of the bench workload with the grid on
+   (cell 50 m, capacity 32, 8 partners) bit-equal to the dense path in
+   every shared field, grid_overflow 0, under "sender" and
+   "receiver_compact".
+8. The scale slice: magics_tpu_torch/bench/scale.py's workload at
+   R=16384 (K=24, 10 internal + 10 external CENTERED, grid), under
+   "receiver_compact" and then "sender", through compile_ticks: capture
+   seconds, 1 warm and 3 timed chunks of 10 ticks; asserts finite state,
+   motion, no overflow, live connectivity, the capture's launches per tick
+   (10 / 10 / 10 / 20 and 10 / 10 / 0 / 10) and 10 eager ticks bit-equal
+   to one replay; prints scale.py's line, a metric line, the state's bytes
+   and the peak memory, each kernel's launches per tick (the capture's
+   count), its device us per launch (torch.profiler of one replay where it
+   records the kernel, else of one eager tick, named in `device_us_of`)
+   and its bound at these shapes, one eager tick's time by phase, and
+   checks each kernel against its plain version at these shapes.
+
 The last two lines are a JSON object of per-kernel results and the JSON
 status line `{"ok": true, "device": {...}}`. Nothing here imports JAX. The
 script refuses to run without a CUDA device; no check is caught.
@@ -52,6 +76,8 @@ import numpy as np
 
 R_BENCH = 1024
 CHUNK = 20
+GRAPH_CHUNK = 10
+R_SCALE = 16384
 SOURCE = {
     "internal_slot": "magics_tpu_torch/kernels/csrc/gbp_slot.cu",
     "variable_slot": "magics_tpu_torch/kernels/csrc/gbp_slot.cu",
@@ -74,6 +100,15 @@ LAUNCHES_PER_TICK = {
     "receiver_compact": {"internal_slot": 50, "variable_slot": 10, "interrobot_slot": 0,
                          "gather_rows": 10},
 }
+# The same for the scale workload (10 internal + 10 external slots).
+SCALE_LAUNCHES_PER_TICK = {
+    "sender": {"internal_slot": 10, "variable_slot": 10, "interrobot_slot": 10,
+               "gather_rows": 20},
+    "receiver_compact": {"internal_slot": 10, "variable_slot": 10, "interrobot_slot": 0,
+                         "gather_rows": 10},
+}
+KERNEL_NAMES = {"internal_slot": "internal_slot_kernel", "variable_slot": "variable_slot_kernel",
+                "interrobot_slot": "interrobot_slot_kernel", "gather_rows": "gather_rows_kernel"}
 # The H100 SXM's published peaks (NVIDIA's data sheet, at its 700 W limit):
 # HBM bandwidth and float32 outside the tensor cores. A kernel's bound is the
 # larger of its bytes over the first and its operations over the second,
@@ -710,39 +745,45 @@ def slice_phase(torch, exchange: str) -> dict:
     if state.device.type != "cuda" or not params.uses_kernels(state.device):
         raise AssertionError(f"the default-built bench scenario is on {state.device}, "
                              f"use_pallas={params.use_pallas}")
-    V, R = params.n_vars, state.n_robots
     start_pos = state.pos.clone()
-    n_int = sum(1 for i, _ in params.schedule if i)
-    n_ext = sum(1 for _, e in params.schedule if e)
-
     run = time_slice(torch, params, state, sdf, profile)
     state, dt, ticks, launches = run["state"], run["seconds"], run["ticks"], run["launches"]
     log(f"[slice] {exchange}: warm-up 2 x {CHUNK} ticks in {run['warm_s']:.2f} s")
-
-    for name, x in vars(state).items():
-        if x.is_floating_point() and not bool(torch.isfinite(x).all()):
-            raise AssertionError(f"non-finite values in {name}")
-    moved = float((state.pos - start_pos).abs().max())
-    overflow = int(state.nbr_overflow)
-    mean_degree = float(state.nbr_mask.sum()) / R
-    if moved <= 1.0:
-        raise AssertionError(f"robots did not move ({moved} m)")
-    if overflow != 0:
-        raise AssertionError(f"nbr_overflow {overflow}")
-    if mean_degree <= 0.0:
-        raise AssertionError("no inter-robot connectivity")
+    guards = check_state(torch, f"slice {exchange}", state, start_pos)
     expected = {name: n * ticks for name, n in LAUNCHES_PER_TICK[exchange].items()}
     if launches != expected:
         raise AssertionError(f"{exchange}: launches {launches} for {ticks} ticks, "
                              f"expected {expected}")
 
-    ticks_per_s = ticks / dt
-    per_factor = 2 * (V - 1) + (V - 2)   # dynamic + obstacle (tracking off)
+    line = metric_line(params, exchange, state.n_robots, guards["mean_degree"],
+                       guards["nbr_overflow"], ticks / dt, "eager")
+    live = int((state.ext_inbox != 0).any(dim=-1).sum())
+    log(f"[slice] {exchange}: {ticks} ticks in {dt:.3f} s: {1e3 * dt / ticks:.3f} ms/tick; "
+        f"moved {guards['moved']:.1f} m; live inbox messages at the end {live}; "
+        f"launches {launches}")
+    log(json.dumps(line))
+    prof = run["profile"]
+    log(f"[slice] {exchange}: 2-tick profile: {prof['launches'] / 2:.1f} cudaLaunchKernel and "
+        f"{prof['device_us'] / 2e3:.3f} ms of device time per tick (torch.profiler)")
+    return launches, state, params, sdf, 1e3 * dt / ticks
+
+
+def metric_line(params, exchange: str, R: int, mean_degree: float, overflow: int,
+                ticks_per_s: float, runner: str) -> dict:
+    """A metric line in bench.py's format (bench.py:96-116): the messages a
+    tick sends, counted per robot (internal slot 2 x the internal factors'
+    messages + K_active (V-1); external slot 2 K_active (V-1)), times ticks
+    per second."""
+    V = params.n_vars
+    n_int = sum(1 for i, _ in params.schedule if i)
+    n_ext = sum(1 for _, e in params.schedule if e)
+    per_factor = 2 * (V - 1) * params.dynamic_enabled + (V - 2) * (
+        params.obstacle_enabled + params.tracking_enabled)
     msgs_per_tick = R * (
         n_int * (2 * per_factor + mean_degree * (V - 1))
         + n_ext * (2 * mean_degree * (V - 1))
     )
-    line = {
+    return {
         "metric": "gbp_message_updates_per_s",
         "value": round(msgs_per_tick * ticks_per_s),
         "unit": (
@@ -751,15 +792,304 @@ def slice_phase(torch, exchange: str) -> dict:
             + f"mean_degree={mean_degree:.1f}, nbr_overflow={overflow})"
         ),
         "vs_baseline": round(ticks_per_s / params.hz, 3),
+        "runner": runner,
     }
-    live = int((state.ext_inbox != 0).any(dim=-1).sum())
-    log(f"[slice] {exchange}: {ticks} ticks in {dt:.3f} s: {1e3 * dt / ticks:.3f} ms/tick; "
-        f"moved {moved:.1f} m; live inbox messages at the end {live}; launches {launches}")
-    log(json.dumps(line))
-    prof = run["profile"]
-    log(f"[slice] {exchange}: 2-tick profile: {prof['launches'] / 2:.1f} cudaLaunchKernel and "
-        f"{prof['device_us'] / 2e3:.3f} ms of device time per tick (torch.profiler)")
-    return launches, state, params
+
+
+def bits_equal(torch, a, b) -> bool:
+    """Bit for bit (NaN included), as bytes."""
+    return a.shape == b.shape and a.dtype == b.dtype and torch.equal(
+        a.contiguous().reshape(-1).view(torch.uint8), b.contiguous().reshape(-1).view(torch.uint8))
+
+
+def differing_fields(torch, a, b, skip=()) -> list:
+    return [name for name, x in vars(a).items()
+            if name not in skip and not bits_equal(torch, x, getattr(b, name))]
+
+
+def check_state(torch, label: str, state, start_pos) -> dict:
+    """The validity guards of a run: finite state, motion, no overflow,
+    live connectivity. Returns the guards' numbers."""
+    for name, x in vars(state).items():
+        if x.is_floating_point() and name not in ("pos_log", "vel_log") and not bool(
+                torch.isfinite(x).all()):
+            raise AssertionError(f"{label}: non-finite values in {name}")
+    out = {"moved": float((state.pos - start_pos).abs().max()),
+           "nbr_overflow": int(state.nbr_overflow), "grid_overflow": int(state.grid_overflow),
+           "mean_degree": float(state.nbr_mask.sum()) / state.n_robots}
+    if out["moved"] <= 1.0 or out["nbr_overflow"] or out["grid_overflow"] or (
+            out["mean_degree"] <= 0.0):
+        raise AssertionError(f"{label}: guards broken: {out}")
+    return out
+
+
+def time_replays(torch, graph, reps: int) -> dict:
+    """`reps` replays: host seconds of each (ending in a synchronise) and
+    the CUDA-event milliseconds of each on the stream."""
+    host, events = [], []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        host.append(time.perf_counter() - t0)
+        events.append(start.elapsed_time(end))
+    return {"host_s": host, "event_ms": events}
+
+
+def graph_phase(torch, exchange: str, state, params, sdf, eager_ms: float) -> None:
+    """A slice's workload from its final state as 10-tick CUDA graphs: the
+    capture's launch counts, 2 replays bit-equal to 20 eager ticks, 3 timed
+    chunks, the graph's device time in one profiled replay, a metric line."""
+    from magics_tpu_torch.graph import tick as T
+    from magics_tpu_torch.graph.chunk import compile_ticks
+    from magics_tpu_torch.profiling import profile
+
+    reset_counts()
+    t0 = time.perf_counter()
+    graph = compile_ticks(state, sdf, params, GRAPH_CHUNK)
+    capture_s = time.perf_counter() - t0
+    expected = {k: n * GRAPH_CHUNK for k, n in LAUNCHES_PER_TICK[exchange].items()}
+    if graph.launches != expected:
+        raise AssertionError(f"graph {exchange}: capture launches {graph.launches}, "
+                             f"expected {expected}")
+    eager = T.run_ticks(state, sdf, params, 2 * GRAPH_CHUNK)
+    before = read_counts()
+    graph.replay()
+    graph.replay()
+    torch.cuda.synchronize()
+    if read_counts() != before:
+        raise AssertionError(f"graph {exchange}: a replay counted launches")
+    bad = differing_fields(torch, graph.state, eager)
+    if bad:
+        raise AssertionError(f"graph {exchange}: 2 replays differ from 20 eager ticks in {bad}")
+    log(f"[graph] {exchange}: captured {GRAPH_CHUNK} ticks in {capture_s:.2f} s (warm-up "
+        f"chunk included), {graph.launches} kernel launches a chunk; 2 replays bit-equal to "
+        f"20 eager ticks in all {len(vars(eager))} fields")
+    del eager
+    reps = 3
+    t = time_replays(torch, graph, reps)
+    ms = 1e3 * sum(t["host_s"]) / (reps * GRAPH_CHUNK)
+    event_ms = statistics.median(t["event_ms"]) / GRAPH_CHUNK
+    prof = profile(graph.replay, required=False)
+    dev_ms = None if prof is None else prof["device_us"] / GRAPH_CHUNK / 1e3
+    final = graph.state
+    guards = check_state(torch, f"graph {exchange}", final, state.pos)
+    if prof is None:
+        recorded = ("not recorded (torch.profiler showed no kernel of the replay); busy share "
+                    "not recorded")
+    else:
+        kernels = sum(n for n, _ in prof["kernels"].values()) / GRAPH_CHUNK
+        recorded = (f"{dev_ms:.3f} ms (torch.profiler of one replay, {kernels:.0f} kernels a "
+                    f"tick); busy share {dev_ms / ms:.1%}")
+    log(f"[graph] {exchange}: {reps} chunks of {GRAPH_CHUNK} ticks: {ms:.3f} ms/tick (host "
+        f"clock; the eager slice {eager_ms:.3f}), {event_ms:.3f} ms/tick by CUDA events over "
+        f"a replay (median of {reps}); device time per tick {recorded}")
+    log(json.dumps(metric_line(params, exchange, state.n_robots, guards["mean_degree"],
+                               guards["nbr_overflow"], 1e3 / ms, "graph")))
+
+
+def grid_dense_phase(torch) -> None:
+    """20 eager ticks of the bench workload on the grid path against the
+    dense path: every shared field bit-equal, grid_overflow 0."""
+    from magics_tpu_torch.graph import tick as T
+
+    for exchange in ("sender", "receiver_compact"):
+        pd, sd, sdf = bench_scenario(torch, exchange)
+        pg, sg, _ = bench_scenario(torch, exchange, grid_cell_size=50.0, grid_capacity=32,
+                                   collision_partners=8)
+        sd = T.run_ticks(sd, sdf, pd, 20)
+        sg = T.run_ticks(sg, sdf, pg, 20)
+        bad = differing_fields(torch, sd, sg, skip=("rr_overlap", "rr_partner"))
+        if bad or int(sg.grid_overflow) != 0:
+            raise AssertionError(f"grid vs dense {exchange}: fields differ {bad}, "
+                                 f"grid_overflow {int(sg.grid_overflow)}")
+        log(f"[grid] {exchange}: 20 ticks at R={R_BENCH}, grid (cell 50 m, capacity 32, "
+            f"8 partners) bit-equal to dense in every shared field; grid_overflow 0, "
+            f"mean degree {float(sg.nbr_mask.sum()) / R_BENCH:.2f}, rr_collisions "
+            f"{int(sg.rr_collisions)}")
+
+
+def scale_bounds(torch, state, params, sdf, exchange: str) -> dict:
+    """Each kernel's bound at the scale shapes, at the state's own inputs
+    (slot_bytes and friends, as the bench-shape checks count them), and
+    each kernel against its plain version there: K1 and K2 to RTOL of each
+    vector's or matrix's scale, K3 (sender) on the synthetic variant of
+    its inputs (the ring's 4.9 m spacing leaves no factor in range yet), K4
+    bit for bit at this exchange's call sites."""
+    from magics_tpu_torch.kernels import gbp_slot as G
+    from magics_tpu_torch.kernels import hot as HOT
+    from magics_tpu_torch.kernels import ir_slot as IR
+    from magics_tpu_torch.kernels import layout as L
+
+    sp = HOT.slot_params(params)
+    world = (params.world_width, params.world_height)
+    h = slot_inputs(state, params)
+    n_gated = int((h["gate"] > 0).sum())
+    want = G.internal_slot_fused_reference(h, sdf, world, sp)
+    compare(torch, f"internal_slot R={state.n_robots}", G.internal_slot(h, sdf, world, sp), want,
+            max_flips=0)
+    out = {"internal_slot": bound(internal_slot_bytes(torch, h, sdf, world, sp, want),
+                                  OPS_PER_ITEM["internal_slot"] * n_gated * params.n_vars)}
+    var_in = {name: h[name] for name in G._VAR_IN_FIELDS}
+    want = G.variable_slot_reference(var_in, sp)
+    compare(torch, f"variable_slot R={state.n_robots}", G.variable_slot(var_in, sp), want,
+            max_flips=MAX_FLIP_SHARE * want["belief_mean"][0].numel())
+    out["variable_slot"] = bound(variable_slot_bytes(torch, var_in, want),
+                                 OPS_PER_ITEM["variable_slot"] * n_gated * params.n_vars)
+    if exchange == "sender":
+        # the bound of the main path's own inputs: nothing in range yet
+        inputs = IR.sender_inputs(state, params)
+        seeded = inputs["seeded"]
+        snap = torch.where(seeded[..., None], inputs["snap_mu"][:, None, 1:, :2], 0.0)
+        x = snap - inputs["p_ext"]
+        live = seeded & ((x * x).sum(dim=-1) < (inputs["safety"] ** 2)[:, None, None])
+        msg = IR.interrobot_slot_reference(**inputs, sigma=params.sigma_factor_interrobot)
+        out["interrobot_slot"] = bound(interrobot_bytes(inputs, live, msg),
+                                       OPS_PER_ITEM["interrobot_slot"] * int(live.sum()))
+        interrobot_check(torch, state, params, "synthetic")
+    sites = ("sender delivery", "sender response") if exchange == "sender" else (
+        "receiver_compact table",)
+    nb = []
+    for site, (tab, idx, m) in gather_sites(torch, state).items():
+        if site not in sites:
+            continue
+        got = L.gather_rows(tab, idx, m)
+        if not torch.equal(got, L.gather_rows_reference(tab, idx, m)):
+            raise AssertionError(f"gather_rows {site} R={state.n_robots}: differs from its "
+                                 f"plain version")
+        read = idx if m is None else idx[m]
+        nb.append(int(read.unique().numel()) * tab.shape[1] * tab.element_size()
+                  + nbytes([got, idx]) + (nbytes([m]) if m is not None else 0))
+        log(f"[scale] gather_rows {site} [{tab.shape[0]}, {tab.shape[1]}] -> "
+            f"[{idx.shape[0]}, {tab.shape[1]}]: bit-equal to its plain version; bound "
+            f"{1e3 * bound(nb[-1], 0.0)['bound_ms']:.3f} us ({nb[-1] / 1e6:.2f} MB)")
+    # per launch: the mean over this exchange's call sites, one launch each
+    out["gather_rows"] = bound(sum(nb) // len(nb), 0.0)
+    return out
+
+
+def tick_phases(torch, state, sdf, params) -> dict:
+    """Milliseconds of each phase of one eager tick from `state`: the
+    functions of tick.step's chain and, within iterate_gbp, the hot loop's
+    pieces, each bracketed by synchronisations (host and device work)."""
+    from magics_tpu_torch.graph import tick as T
+    from magics_tpu_torch.kernels import hot as HOT
+    from magics_tpu_torch.profiling import host_timers
+
+    chain = ("activate_due_spawns", "check_waypoints", "update_connectivity",
+             "update_connectivity_grid", "update_failed_comms", "update_prior_horizon",
+             "update_prior_current", "iterate_gbp", "update_message_counts",
+             "update_collisions", "update_collisions_grid", "update_goal_areas",
+             "log_positions")
+    slot = [(HOT, "internal_slot"), (HOT, "variable_slot"), (HOT, "_ext_sum_hot"),
+            (T, "seed_cavities"), (T, "external_factor_pass"), (T, "deliver_responses")]
+    rec, restore = host_timers([(T, name) for name in chain] + slot, sync=True)
+    try:
+        T.step(state, sdf, params)
+    finally:
+        restore()
+    return {name: 1e3 * secs for name, (calls, secs) in rec.items() if calls}
+
+
+def scale_phase(torch, exchange: str) -> dict:
+    """The scale slice at R_SCALE through compile_ticks (see the module
+    docstring, phase 8). Returns each kernel's device us per launch,
+    launches per tick and bound at these shapes."""
+    from magics_tpu_torch.bench import scale as S
+    from magics_tpu_torch.graph import tick as T
+    from magics_tpu_torch.graph.chunk import clone_state, compile_ticks
+    from magics_tpu_torch.profiling import profile
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params, state, sdf = S.scale_scenario(R_SCALE, exchange)
+    build_s = time.perf_counter() - t0
+    state_mb = nbytes(vars(state).values()) / 1e6
+    start_pos = state.pos.clone()
+    reset_counts()
+    t0 = time.perf_counter()
+    graph = compile_ticks(state, sdf, params, S.CHUNK)
+    capture_s = time.perf_counter() - t0
+    per_tick = SCALE_LAUNCHES_PER_TICK[exchange]
+    expected = {k: n * S.CHUNK for k, n in per_tick.items()}
+    if graph.launches != expected:
+        raise AssertionError(f"scale {exchange}: capture launches {graph.launches}, "
+                             f"expected {expected}")
+    del state
+    S.run_chunks(graph, 1)                                # the warm chunk
+    reps = 3
+    t = time_replays(torch, graph, reps)
+    ms = 1e3 * sum(t["host_s"]) / (reps * S.CHUNK)
+    event_ms = statistics.median(t["event_ms"]) / S.CHUNK
+    peak_mb = torch.cuda.max_memory_allocated() / 1e6
+    final = graph.state
+    guards = check_state(torch, f"scale {exchange}", final, start_pos)
+    m = {"R": R_SCALE, "exchange": exchange, "ms_per_tick": ms,
+         "x_real_time": (1e3 / params.hz) / ms, "capture_s": capture_s, **guards}
+    log(f"[scale] {exchange}: built R={R_SCALE} in {build_s:.2f} s; state {state_mb:.1f} MB; "
+        f"captured {S.CHUNK} ticks in {capture_s:.2f} s (warm-up chunk included), launches "
+        f"a chunk {graph.launches}")
+    log(S.line(m))
+    log(f"[scale] {exchange}: {reps} chunks: {ms:.3f} ms/tick host clock, {event_ms:.3f} ms/tick "
+        f"by CUDA events over a replay (median of {reps}); peak memory {peak_mb:.1f} MB "
+        f"(torch.cuda.max_memory_allocated); moved {guards['moved']:.1f} m")
+    log(json.dumps(metric_line(params, exchange, R_SCALE, guards["mean_degree"],
+                               guards["nbr_overflow"], 1e3 / ms, "graph")))
+
+    # 10 eager ticks against one replay, from the same state
+    snapshot = clone_state(final)
+    eager = T.run_ticks(snapshot, sdf, params, S.CHUNK)
+    graph.replay()
+    bad = differing_fields(torch, graph.state, eager)
+    if bad:
+        raise AssertionError(f"scale {exchange}: a replay differs from 10 eager ticks in {bad}")
+    log(f"[scale] {exchange}: one replay bit-equal to {S.CHUNK} eager ticks in every field")
+    del eager
+    # device time: one replay (where the profiler records the graph's
+    # kernels) and one eager tick
+    prof_graph = profile(graph.replay, required=False)
+    state = clone_state(graph.state)
+    prof = profile(lambda: T.run_ticks(state, sdf, params, 1))
+    dev_ms = prof_graph["device_us"] / S.CHUNK / 1e3 if prof_graph else None
+    log(f"[scale] {exchange}: device time per tick {prof['device_us'] / 1e3:.3f} ms in a "
+        f"profiled eager tick ({prof['launches']} cudaLaunchKernel); in a profiled replay "
+        + (f"{dev_ms:.3f} ms, busy share of the graph's tick {dev_ms / ms:.1%}"
+           if dev_ms is not None else "not recorded, busy share not recorded"))
+    log(f"[scale] {exchange}: one eager tick by phase, ms (synchronised host timers; "
+        f"the slot pieces lie within iterate_gbp): " + ", ".join(
+            f"{name} {ms_:.3f}" for name, ms_ in tick_phases(torch, state, sdf, params).items()))
+    bounds = scale_bounds(torch, state, params, sdf, exchange)
+    kernels = {}
+    for name, kname in KERNEL_NAMES.items():
+        if not graph.launches[name]:
+            continue
+        # launches per tick are the capture's count; the device time per
+        # launch comes from the profiled replay where it recorded this
+        # kernel, else from the profiled eager tick, and says which. A
+        # profiler's count only divides its own time (it may miss a launch
+        # at its window's edge)
+        source, hits = "graph replay", []
+        if prof_graph is not None:
+            hits = [(n, us) for key, (n, us) in prof_graph["kernels"].items() if kname in key]
+        if not hits:
+            source = "eager tick"
+            hits = [(n, us) for key, (n, us) in prof["kernels"].items() if kname in key]
+        count = sum(n for n, _ in hits)
+        us = sum(u for _, u in hits) / count if count else None
+        per_tick = graph.launches[name] / S.CHUNK
+        b = bounds[name]
+        kernels[name] = {"device_us": us, "device_us_of": source if count else "not recorded",
+                         "launches_per_tick": per_tick, **b}
+        log(f"[scale] {exchange}: {name} x {per_tick:g} a tick (capture's count), "
+            + (f"{us:.3f} us per launch (torch.profiler of one {source})" if count
+               else "device time not recorded")
+            + f" against a bound of {1e3 * b['bound_ms']:.3f} us ({b['bound_by']})")
+    return kernels
 
 
 def main() -> int:
@@ -775,7 +1105,7 @@ def main() -> int:
     kernels = kernel_phase(torch, device)
     small_input_phase(torch, device)
     # the sender slice runs every kernel; its counts go in the kernels line
-    launches, state, params = slice_phase(torch, "sender")
+    launches, state, params, sdf, eager_ms = slice_phase(torch, "sender")
     # K3 once more, on the inputs the main path gives it after 100 ticks
     # (live factors); after the counts were read, so it adds no launch. Its
     # times there go in the kernels line: the kernel's work depends on the
@@ -785,8 +1115,13 @@ def main() -> int:
         **main_path,
         "max_abs_err": max(kernels["interrobot_slot"]["max_abs_err"], main_path["max_abs_err"]),
     }
+    graph_phase(torch, "sender", state, params, sdf, eager_ms)
     del state
-    slice_phase(torch, "receiver_compact")
+    _, state, params, sdf, eager_ms = slice_phase(torch, "receiver_compact")
+    graph_phase(torch, "receiver_compact", state, params, sdf, eager_ms)
+    del state
+    grid_dense_phase(torch)
+    scale = {exchange: scale_phase(torch, exchange) for exchange in ("receiver_compact", "sender")}
 
     report = {
         "kernels": [
@@ -807,6 +1142,8 @@ def main() -> int:
                 "device_us_cold": kernels[name]["device_us_cold"],
                 **{k: kernels[name][k] for k in ("library_device_us", "shapes")
                    if k in kernels[name]},
+                "scale": {exchange: scale[exchange].get(name)
+                          for exchange in scale},
             }
             for name in REPLACES
         ]

@@ -99,10 +99,16 @@ def inv4_rowscaled(m: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 def belief_covariance(lam: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Invert a belief precision [..., 4, 4] with a residual sanity check:
     valid where det != 0, the inverse is finite and ||lam @ cov - I||_inf
-    < 1e-4 (magics_tpu core/linalg.py:belief_covariance)."""
+    < 1e-4 (magics_tpu core/linalg.py:belief_covariance). The residual sums
+    the exact products of the float32 operands in float64: on a
+    rank-deficient precision, a float32 sum of rounded products can cancel
+    to exactly the identity and pass, where the JAX package's XLA dot (fused
+    multiply-adds, which keep the products' low bits) fails it. Such
+    precisions arise within a tick at the swarm-scale workload's 12.8 km
+    coordinates; the slot kernels form the residual the same way."""
     cov, det = inv4_rowscaled(lam)
-    eye = torch.eye(lam.shape[-1], dtype=lam.dtype, device=lam.device)
-    resid = (mm(lam, cov) - eye).abs().amax(dim=(-2, -1))
+    eye = torch.eye(lam.shape[-1], dtype=torch.float64, device=lam.device)
+    resid = (mm(lam.double(), cov.double()) - eye).abs().amax(dim=(-2, -1))
     finite = torch.isfinite(cov).all(dim=-1).all(dim=-1)
     valid = (det != 0.0) & finite & (resid < 1e-4)
     return cov, valid

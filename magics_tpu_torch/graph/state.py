@@ -75,7 +75,7 @@ class GbpParams:
     dtype: torch.dtype = torch.float32
 
     # "sender" | "receiver" | "receiver_compact" (magics_tpu graph/state.py);
-    # the port carries all three.
+    # the port carries all three and refuses any other name.
     ext_exchange: str = "sender"
 
     # Run the GBP slots through the hand-written kernels (kernels/hot.py)
@@ -93,7 +93,13 @@ class GbpParams:
     collision_partners: int = 8
     max_robot_radius: float = 1.0
 
+    # lowers runs of identical slots to lax.scan in the JAX package (compile
+    # size only); the port runs the same slots unrolled either way
     scan_schedule: bool = False
+
+    def __post_init__(self) -> None:
+        if self.ext_exchange not in ("sender", "receiver", "receiver_compact"):
+            raise ValueError(f"unknown ext_exchange {self.ext_exchange!r}")
 
     def uses_kernels(self, device: torch.device) -> bool:
         """Whether the GBP slots of a state on `device` run through the

@@ -7,18 +7,25 @@ Everything is dense and masked, as plain functions on tensors; each returns a
 new `SimState` and leaves its input untouched (fields it changes are fresh
 tensors).
 
-The port carries dense connectivity and collisions, an unrolled schedule,
-and all three inter-robot exchanges of the JAX package, branch for branch:
-"sender" (the reference's routing: each factor owner computes its outbox,
-receivers gather it by (peer, reciprocal slot)), "receiver" and
-"receiver_compact" (each receiver recomputes its incoming messages from the
-peers' gathered snapshot tables and local mirrors). `step` and
-`iterate_gbp` refuse the grid path, `scan_schedule` and the collision event
-records with NotImplementedError naming the ROADMAP item that ports each.
+The port carries every configuration the JAX `step` takes on one device:
+dense or grid connectivity and collisions (`grid_cell_size > 0`, graph/grid.py),
+the collision event records (`collision_log_capacity > 0`), and all three
+inter-robot exchanges, branch for branch: "sender" (the reference's routing:
+each factor owner computes its outbox, receivers gather it by (peer,
+reciprocal slot)), "receiver" and "receiver_compact" (each receiver
+recomputes its incoming messages from the peers' gathered snapshot tables
+and local mirrors). `scan_schedule` changes only how XLA compiles the
+schedule, so the port runs the same slots unrolled whatever it says.
+
+A tick copies nothing from the host to the card and never waits for the
+card, so a chunk of ticks can be captured in a CUDA graph (graph/chunk.py):
+its constants are device tensors cached per device (`_timesteps`) or Python
+scalars handed to the ops.
 """
 
 from __future__ import annotations
 
+import functools
 from dataclasses import replace
 
 import torch
@@ -26,6 +33,7 @@ import torch
 from magics_tpu_torch.core.constants import TRACKING_SKIP_FIRST_N_FACTOR_ITERS
 from magics_tpu_torch.core.linalg import inv4_rowscaled
 from magics_tpu_torch.graph import factors as F
+from magics_tpu_torch.graph import grid as G
 from magics_tpu_torch.graph import variables as VU
 from magics_tpu_torch.graph.state import GbpParams, SimState
 from magics_tpu_torch.kernels import ir_slot as IR
@@ -48,13 +56,30 @@ def _where_rows(gate_r: torch.Tensor, new: torch.Tensor, old: torch.Tensor) -> t
 
 
 def _set_where(arr: torch.Tensor, index, gate: torch.Tensor, value) -> torch.Tensor:
-    """A copy of `arr` with `arr[index]` replaced by `value` where the
-    per-robot `gate` holds (the JAX `.at[index].set(where(gate, value, old))`)."""
+    """A copy of `arr` with `arr[index]` replaced by `value` (a tensor, or a
+    Python scalar handed to the op as it is) where the per-robot `gate`
+    holds (the JAX `.at[index].set(where(gate, value, old))`)."""
     out = arr.clone()
     old = arr[index]
-    value = torch.as_tensor(value, dtype=arr.dtype, device=arr.device)
+    if isinstance(value, torch.Tensor):
+        value = value.to(arr.dtype)
     out[index] = torch.where(_exp(gate, old.ndim - gate.ndim), value, old)
     return out
+
+
+# Unbounded: a captured chunk (graph/chunk.py) reads the tensor's address on
+# every replay, so an entry must never be evicted and its memory reused.
+@functools.cache
+def _timesteps_cached(ts: tuple, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    return torch.as_tensor(ts, dtype=dtype, device=device)
+
+
+def _timesteps(params: GbpParams, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """[V] the variables' timesteps as a tensor on `device`, made once per
+    (timesteps, dtype, device) and kept for the process's life: a tick
+    copies nothing from the host (a first tick, before any capture, makes
+    it)."""
+    return _timesteps_cached(tuple(params.variable_timesteps), dtype, torch.device(device))
 
 
 def _clip_idx(idx: torch.Tensor, n: int) -> torch.Tensor:
@@ -293,6 +318,105 @@ def _finish_connectivity(
     )
 
 
+def _grid_spec(params: GbpParams) -> G.GridSpec:
+    """The grid of the tick: its stencil covers the comms radius and every
+    possible colliding pair (d < r_i + r_j <= 2 max_robot_radius), so one
+    candidate table serves connectivity and collisions."""
+    return G.make_grid_spec(
+        (params.world_width, params.world_height),
+        params.grid_cell_size,
+        max(params.comms_radius, 2.0 * params.max_robot_radius),
+        params.grid_capacity,
+    )
+
+
+def grid_candidates(state: SimState, params: GbpParams, comm=LOCAL):
+    """Each local robot's stencil candidates with their data (magics_tpu
+    tick.py:grid_candidates): (cand_idx [Rl, M], cand_pos [Rl, M, 2],
+    cand_rad [Rl, M], cand_mask [Rl, M]). The bucket tables are built from
+    the gathered global positions; lookups run on the local rows."""
+    Rl = state.pos.shape[0]
+    spec = _grid_spec(params)
+    bucket, bpos, brad = G.build_grid_tables(
+        spec, comm.all_robots(state.pos), comm.all_robots(state.active),
+        comm.all_robots(state.radius),
+    )
+    cell_l = G.cell_ids(spec, state.pos, state.active)
+    return G.candidate_data(
+        spec, cell_l, bucket, bpos, brad, state.active,
+        row_ids=comm.row_ids(Rl, state.device),
+    )
+
+
+def update_connectivity_grid(
+    state: SimState, params: GbpParams, comm=LOCAL, candidates=None
+) -> SimState:
+    """Grid connectivity (magics_tpu tick.py:update_connectivity_grid): the
+    semantics of `update_connectivity`, the pair search over the stencil
+    candidates. Nothing here is [R, R].
+
+    The JAX package takes the K nearest new pairs by `lax.top_k`, whose
+    ties keep the lower column (it is stable), then re-sorts them by (d2,
+    id) so that both paths fill slots alike. `torch.topk` is not stable
+    (ROADMAP fault F2): the port takes the first K columns of a stable
+    sort, and the (d2, id) order from two stable sorts, by id, then by d2."""
+    Rl, K = state.nbr_idx.shape
+    pos_all = comm.all_robots(state.pos)
+    act_all = comm.all_robots(state.active)
+    R = act_all.shape[0]
+    cand_idx, cand_pos, _, cand_mask = (
+        candidates if candidates is not None else grid_candidates(state, params, comm)
+    )
+    # bucket-capacity drops, counted in-state once a tick
+    state = replace(
+        state,
+        grid_overflow=state.grid_overflow
+        + G.grid_overflow(_grid_spec(params), pos_all, act_all).to(torch.int32),
+    )
+    radius2 = params.comms_radius * params.comms_radius
+
+    # keep existing slots by exact distance (both endpoints alive)
+    safe = _clip_idx(state.nbr_idx, R)
+    diff = state.pos[:, None, :] - pos_all[safe]
+    d2_slot = (diff * diff).sum(dim=-1)
+    keep = state.nbr_mask & state.active[:, None] & act_all[safe] & (d2_slot <= radius2)
+
+    # in-range candidates not already connected (cand_pos is far away where
+    # masked, so the distance test gates too)
+    diff = state.pos[:, None, :] - cand_pos
+    d2 = (diff * diff).sum(dim=-1)                        # [Rl, M]
+    in_range = cand_mask & (d2 <= radius2)
+    kept_ids = torch.where(keep, state.nbr_idx, torch.full_like(state.nbr_idx, -2))
+    connected = (cand_idx[:, :, None] == kept_ids[:, None, :]).any(dim=-1)
+    new_pair = in_range & ~connected
+
+    key = torch.where(new_pair, d2, torch.full_like(d2, float("inf")))
+    M = key.shape[1]
+    kk = min(K, M)
+    sel_d2, sel = torch.sort(key, dim=1, stable=True)
+    sel_d2, sel = sel_d2[:, :kk], sel[:, :kk]
+    sel_ids = torch.gather(cand_idx, 1, sel)
+    # (d2, id) lexicographic: by id, then stably by d2
+    by_id = torch.sort(sel_ids, dim=1, stable=True)
+    sel_ids = by_id.values
+    sel_d2 = torch.gather(sel_d2, 1, by_id.indices)
+    sel_d2, by_d2 = torch.sort(sel_d2, dim=1, stable=True)
+    sel_ids = torch.gather(sel_ids, 1, by_d2)
+    sel_ok = sel_d2 < float("inf")
+    free_rank = torch.cumsum((~keep).to(torch.int32), dim=1) - 1      # [Rl, K]
+    fr = free_rank.clamp(0, kk - 1).long()
+    new_id = torch.gather(sel_ids, 1, fr).to(torch.int32)
+    new_ok = torch.gather(sel_ok, 1, fr)
+    valid = ~keep & (free_rank >= 0) & (free_rank < M) & new_ok
+    nbr_idx_new = torch.where(valid, new_id, torch.full_like(new_id, -1))
+    nbr_idx_new = torch.where(keep, state.nbr_idx, nbr_idx_new)
+
+    n_new = new_pair.sum(dim=1)
+    n_free = (~keep).sum(dim=1)
+    dropped = comm.psum(torch.clamp(n_new - n_free, min=0).sum())
+    return _finish_connectivity(state, params, keep, nbr_idx_new, comm, dropped)
+
+
 # --------------------------------------------------------------------------
 # prior updates
 # --------------------------------------------------------------------------
@@ -417,7 +541,7 @@ def _not_idle(state: SimState) -> torch.Tensor:
 
 def _delta_t(state: SimState, params: GbpParams) -> torch.Tensor:
     """[R, V-1] dynamic-factor time gaps t0 * (ts[i+1] - ts[i])."""
-    ts = torch.as_tensor(params.variable_timesteps, dtype=state.t0.dtype, device=state.device)
+    ts = _timesteps(params, state.t0.dtype, state.device)
     return state.t0[:, None] * (ts[1:] - ts[:-1])[None, :]
 
 
@@ -682,8 +806,8 @@ def iterate_gbp(state: SimState, sdf: torch.Tensor, params: GbpParams, comm=LOCA
     """`iterate_gbp_v2` (robot.rs:1769-1861): run the iteration schedule,
     unrolled. Where `params.uses_kernels` holds (by default on CUDA) the
     slots run on the hot layout through the hand-written kernels
-    (kernels/hot.py)."""
-    _require_ported(params)
+    (kernels/hot.py). `scan_schedule` is the JAX package's compile-size
+    knob; the slots run unrolled whatever it says."""
     if not params.schedule:
         return state
     if params.uses_kernels(state.device):
@@ -755,7 +879,8 @@ def update_collisions(
     comm=LOCAL,
 ) -> SimState:
     """Robot-robot (bounding discs) and robot-environment collision events
-    with hysteresis (collisions.rs:72-140,146-227), dense [R, R]."""
+    with hysteresis (collisions.rs:72-140,146-227), dense [R, R], with the
+    event AABB records where `collision_log_capacity > 0`."""
     Rl = state.pos.shape[0]
     dev = state.device
     pos_all = comm.all_robots(state.pos)
@@ -782,16 +907,66 @@ def update_collisions(
         rr_collisions=state.rr_collisions + new_events.to(torch.int32),
         rr_count=rr_count,
     )
+    if state.rr_events.shape[0] > 0:
+        ii = torch.arange(R, device=dev)
+        updates.update(_rr_event_updates(
+            state, new_pair.reshape(-1),
+            ii[:, None].expand(R, R).reshape(-1), ii[None, :].expand(R, R).reshape(-1),
+        ))
     if env_dist is not None:
         updates.update(_env_collision_updates(state, params, env_dist, comm))
     return replace(state, **updates)
+
+
+def _ring_append(ring: torch.Tensor, count: torch.Tensor, flat: torch.Tensor,
+                 rows: torch.Tensor) -> torch.Tensor:
+    """`ring` [C, w] with the `rows` [N, w] where `flat` [N] holds appended
+    in order after the `count` events already written, wrapping at C (the
+    JAX `ring.at[slot].set(rows, mode="drop")` with slot (count + rank) % C,
+    C where not `flat`). Where one tick appends more than C events, the last
+    C are kept, as a scatter applied in order leaves them. The rows that are
+    not written go to a spare row C, sliced off: a CUDA scatter asserts on
+    an index out of range, and no real row may be clamped onto."""
+    C = ring.shape[0]
+    flat_i = flat.to(torch.int64)
+    rank = torch.cumsum(flat_i, dim=0) - 1
+    n = rank[-1] + 1
+    write = flat & (rank >= n - C)
+    slot = torch.where(write, (count.to(torch.int64) + rank) % C, torch.full_like(rank, C))
+    out = torch.cat([ring, ring.new_zeros((1, ring.shape[1]))])
+    out[slot] = rows.to(ring.dtype)
+    return out[:C]
+
+
+def _rr_event_updates(state: SimState, flat, a_idx, b_idx) -> dict:
+    """The robot-robot event records (export.rs:171-185): for each new pair
+    (a, b) where `flat`, the intersection box of the two discs' AABBs and
+    the tick, [a, b, min x, min y, max x, max y, tick], appended to the
+    ring. The ring's write order is global: one device only, as the JAX
+    package refuses the records on a sharded mesh."""
+    f = state.pos.dtype
+    pa, ra = state.pos[a_idx], state.radius[a_idx]
+    pb, rb = state.pos[b_idx], state.radius[b_idx]
+    mn = torch.maximum(pa - ra[:, None], pb - rb[:, None])
+    mx = torch.minimum(pa + ra[:, None], pb + rb[:, None])
+    rows = torch.cat([
+        a_idx[:, None].to(f), b_idx[:, None].to(f), mn, mx,
+        state.tick.to(f).expand(flat.shape[0])[:, None],
+    ], dim=1)
+    return dict(
+        rr_events=_ring_append(state.rr_events, state.rr_event_count, flat, rows),
+        rr_event_count=state.rr_event_count + flat.sum().to(torch.int32),
+    )
 
 
 def _env_collision_updates(
     state: SimState, params: GbpParams, env_dist: torch.Tensor, comm=LOCAL
 ) -> dict:
     """Robot-environment overlap via the euclidean distance field
-    (collisions.rs:108-140)."""
+    (collisions.rs:108-140), shared by the dense and grid paths, with the
+    event records [robot, min x, min y, max x, max y, tick] of the discs'
+    AABBs where `collision_log_capacity > 0`."""
+    R = state.pos.shape[0]
     H, W = env_dist.shape
     ww, wh = params.world_width, params.world_height
     xf = (state.pos[:, 0] + ww / 2.0) * (W / ww)
@@ -801,11 +976,71 @@ def _env_collision_updates(
     yi = yf.clamp(0, H - 1).to(torch.int32).long()
     re_overlap = state.active & (env_dist[yi, xi] < state.radius)
     new_re = re_overlap & ~state.re_overlap
-    return dict(
+    updates = dict(
         re_overlap=re_overlap,
         re_collisions=state.re_collisions + comm.psum(new_re.sum()).to(torch.int32),
         re_count=state.re_count + new_re.to(torch.int32),
     )
+    if state.re_events.shape[0] > 0:
+        f = state.pos.dtype
+        r = state.radius[:, None]
+        rows = torch.cat([
+            torch.arange(R, dtype=f, device=state.device)[:, None],
+            state.pos - r, state.pos + r, state.tick.to(f).expand(R)[:, None],
+        ], dim=1)
+        updates["re_events"] = _ring_append(state.re_events, state.re_event_count, new_re, rows)
+        updates["re_event_count"] = state.re_event_count + new_re.sum().to(torch.int32)
+    return updates
+
+
+def update_collisions_grid(
+    state: SimState, params: GbpParams, env_dist: torch.Tensor | None = None,
+    comm=LOCAL, candidates=None,
+) -> SimState:
+    """Grid collision events (magics_tpu tick.py:update_collisions_grid):
+    hysteresis by a per-robot table of the P lowest currently overlapping
+    partner ids, [R, P], instead of the dense [R, R] matrix. An event counts
+    where a partner enters the table, once per pair (a < b); overlaps past P
+    are counted in `rr_partner_overflow`."""
+    Rl = state.pos.shape[0]
+    P = state.rr_partner.shape[1]
+    R = comm.all_robots(state.active).shape[0]
+    cand_idx, cand_pos, cand_rad, cand_mask = (
+        candidates if candidates is not None else grid_candidates(state, params, comm)
+    )
+    diff = state.pos[:, None, :] - cand_pos
+    d2 = (diff * diff).sum(dim=-1)
+    rsum = state.radius[:, None] + cand_rad
+    overlap = cand_mask & (d2 < rsum * rsum)                 # [Rl, M]
+
+    # the P lowest overlapping ids (only the values count, so ties among the
+    # R fillers do not matter), padded with R where M < P
+    key = torch.where(overlap, cand_idx, torch.full_like(cand_idx, R))
+    cur = torch.topk(key, min(P, key.shape[1]), dim=1, largest=False, sorted=True).values
+    if cur.shape[1] < P:
+        cur = torch.cat([cur, cur.new_full((Rl, P - cur.shape[1]), R)], dim=1)
+    cur = torch.where(cur < R, cur, torch.full_like(cur, -1)).to(torch.int32)
+    n_overlap = overlap.sum(dim=1).to(torch.int32)
+    dropped = torch.clamp(n_overlap - P, min=0).sum()
+
+    prev = state.rr_partner
+    is_new = (cur >= 0) & ~(cur[:, :, None] == prev[:, None, :]).any(dim=-1)
+    me = comm.row_ids(Rl, state.device)[:, None]
+    once = is_new & (cur > me)                               # each pair once
+    updates = dict(
+        rr_partner=cur,
+        rr_collisions=state.rr_collisions + comm.psum(once.sum()).to(torch.int32),
+        rr_count=state.rr_count + is_new.sum(dim=1).to(torch.int32),
+        rr_partner_overflow=state.rr_partner_overflow + comm.psum(dropped).to(torch.int32),
+    )
+    if state.rr_events.shape[0] > 0:
+        updates.update(_rr_event_updates(
+            state, once.reshape(-1), me.long().expand(R, P).reshape(-1),
+            cur.clamp(0, R - 1).long().reshape(-1),
+        ))
+    if env_dist is not None:
+        updates.update(_env_collision_updates(state, params, env_dist, comm))
+    return replace(state, **updates)
 
 
 def update_goal_areas(state: SimState, params: GbpParams) -> SimState:
@@ -833,7 +1068,7 @@ def log_positions(state: SimState, params: GbpParams) -> SimState:
     if params.log_every <= 0 or params.log_capacity <= 0:
         return state
     f32 = torch.float32
-    nan = torch.tensor(float("nan"), dtype=f32, device=state.device)
+    nan = float("nan")
     do_log = (state.tick % params.log_every) == 0
     zero = torch.zeros_like(state.log_head)
     idx = torch.where(do_log, state.log_head % params.log_capacity, zero).long()
@@ -842,9 +1077,10 @@ def log_positions(state: SimState, params: GbpParams) -> SimState:
     vel = torch.where(alive, state.belief_mean[:, 0, 2:4].to(f32), nan)
 
     def ring_write(log, i, row):
-        out = log.clone()
-        out[i] = torch.where(do_log, row, log[i])
-        return out
+        # by index_select / index_copy: indexing with a 0-dim tensor may
+        # read it on the host
+        i = i.reshape(1)
+        return log.index_copy(0, i, torch.where(do_log, row, log.index_select(0, i)[0])[None])
 
     updates = dict(
         pos_log=ring_write(state.pos_log, idx, sample),
@@ -872,28 +1108,6 @@ def log_positions(state: SimState, params: GbpParams) -> SimState:
 # the full tick
 # --------------------------------------------------------------------------
 
-def _require_ported(params: GbpParams) -> None:
-    """Refuse the configurations the port does not carry yet, naming the
-    ROADMAP item that ports each."""
-    if params.ext_exchange not in ("sender", "receiver", "receiver_compact"):
-        raise ValueError(f"unknown ext_exchange {params.ext_exchange!r}")
-    if params.use_grid:
-        raise NotImplementedError(
-            "grid connectivity/collisions (grid_cell_size > 0) are not ported; "
-            "the swarm-scale grid path is ROADMAP Queue 1 item 10"
-        )
-    if params.scan_schedule:
-        raise NotImplementedError(
-            "scan_schedule is not ported: the port's schedule is a Python loop; "
-            "chunk capture is ROADMAP Queue 1 item 6"
-        )
-    if params.collision_log_capacity > 0:
-        raise NotImplementedError(
-            "collision_log_capacity > 0 (event AABB records) is not ported; "
-            "it is ROADMAP Queue 1 item 11"
-        )
-
-
 def _pin_fp32_matmul() -> None:
     # The JAX step pins matmul precision to "highest": a float32 product in
     # TF32 keeps ~3 decimal digits, the covariance residual check then
@@ -914,19 +1128,26 @@ def step(
 ) -> SimState:
     """One FixedUpdate tick (robot.rs:86-108 system chain). `generator`
     drives the comms-failure draws and is needed when
-    comms_failure_rate > 0."""
-    _require_ported(params)
+    comms_failure_rate > 0. Grid connectivity and collisions each build
+    their candidate tables at their own point of the chain, as in JAX
+    (collisions see the positions update_prior_current moved)."""
     if state.pos.is_cuda:
         _pin_fp32_matmul()
     state = activate_due_spawns(state)
     state = check_waypoints(state, params)
-    state = update_connectivity(state, params, comm)
+    if params.use_grid:
+        state = update_connectivity_grid(state, params, comm)
+    else:
+        state = update_connectivity(state, params, comm)
     state = update_failed_comms(state, params, comm, generator)
     state = update_prior_horizon(state, params, comm)
     state = update_prior_current(state, params)
     state = iterate_gbp(state, sdf, params, comm)
     state = update_message_counts(state, params, comm)
-    state = update_collisions(state, params, env_dist, comm)
+    if params.use_grid:
+        state = update_collisions_grid(state, params, env_dist, comm)
+    else:
+        state = update_collisions(state, params, env_dist, comm)
     state = update_goal_areas(state, params)
     state = log_positions(state, params)
     return replace(state, tick=state.tick + 1)
@@ -941,8 +1162,10 @@ def run_ticks(
     comm=LOCAL,
     generator: torch.Generator | None = None,
 ) -> SimState:
-    """Run `n` ticks. A Python loop over `step`: nothing syncs with the host
-    between ticks unless the caller reads a value."""
+    """Run `n` ticks eagerly: a Python loop over `step`; nothing syncs with
+    the host between ticks unless the caller reads a value. On the card,
+    graph/chunk.py:compile_ticks captures the same loop as one CUDA graph
+    (the counterpart of `jax.jit` over the JAX package's `lax.scan`)."""
     for _ in range(n):
         state = step(state, sdf, params, env_dist, comm, generator)
     return state

@@ -134,6 +134,13 @@
 // rounds a Python scalar against a float32 tensor. Sums still run in another
 // order than PyTorch's reductions, so kernel and plain version agree to
 // float32 roundoff, not bit for bit; chip_smoke.py states the tolerances.
+// The belief guard's residual ||lam cov - I|| sums exact products in
+// double (core/linalg.py:belief_covariance does the same): on a
+// rank-deficient precision the float32 sum of rounded products can cancel
+// to exactly the identity and pass, where the JAX package's XLA dot, whose
+// fused multiply-adds keep the products' low bits, fails it. The
+// swarm-scale workload's 12.8 km coordinates reach such precisions within
+// a tick.
 //
 // Registers: kernels/build.py keeps the -Xptxas -v report beside the library
 // and chip_smoke.py prints it. The launch bounds (512 threads) cap a
@@ -763,10 +770,11 @@ __device__ __forceinline__ Belief solve_belief_pair(const float eta[4], const fl
   for (int i = 0; i < 4; ++i)
 #pragma unroll
     for (int jj = 0; jj < 2; ++jj) {
-      float acc = lam[i][0] * mine[0][jj];
+      // exact products, summed in double (the rounding note at the top)
+      double acc = static_cast<double>(lam[i][0]) * mine[0][jj];
 #pragma unroll
-      for (int k = 1; k < 4; ++k) acc += lam[i][k] * mine[k][jj];
-      resid = fmaxf(resid, fabsf(acc - (i == 2 * half + jj ? 1.f : 0.f)));
+      for (int k = 1; k < 4; ++k) acc += static_cast<double>(lam[i][k]) * mine[k][jj];
+      resid = fmaxf(resid, static_cast<float>(fabs(acc - (i == 2 * half + jj ? 1.0 : 0.0))));
       finite = finite && isfinite(mine[i][jj]);
     }
   resid = fmaxf(resid, __shfl_xor_sync(mask, resid, 1));

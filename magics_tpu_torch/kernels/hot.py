@@ -55,7 +55,7 @@ def slot_params(params: GbpParams) -> SlotParams:
 def to_hot(state: SimState, params: GbpParams) -> dict:
     """Transpose the slot-kernel fields into hot layout (contiguous)."""
     f = state.prior_mean.dtype
-    ts = torch.as_tensor(params.variable_timesteps, dtype=f, device=state.device)
+    ts = T._timesteps(params, f, state.device)
     gaps = ts[1:] - ts[:-1]  # [V-1]
     names = (
         "belief_eta", "belief_lam", "belief_mean", "snap_eta", "snap_lam", "snap_mu",

@@ -1,4 +1,5 @@
-"""Device-side measurements of the port on an NVIDIA GPU, by torch.profiler.
+"""Device-side measurements of the port on an NVIDIA GPU, by torch.profiler,
+and host timers around the port's functions.
 
 Used by chip_smoke.py and scripts/torch_tick_compare.py. It imports nothing
 but torch, so the comparison script can load this file by path beside
@@ -8,6 +9,8 @@ around a wrapper call (host work included) do not give.
 """
 
 from __future__ import annotations
+
+import time
 
 import torch
 
@@ -21,13 +24,14 @@ def _is_device_event(evt) -> bool:
     return evt.device_type == torch.autograd.DeviceType.CUDA
 
 
-def profile(fn, attempts: int = 3) -> dict:
+def profile(fn, attempts: int = 3, required: bool = True) -> dict | None:
     """Run `fn()` under torch.profiler (host and device) and return
     {"launches": cudaLaunchKernel calls, "device_us": device time of every
     kernel, copy and fill, "kernels": {name: [count, device us]}}. A window
     in which the profiler recorded no device activity at all (it happens
-    now and then) is run again, up to `attempts` times; `fn` must be safe
-    to repeat."""
+    now and then, and a CUDA graph's replay may not show its kernels) is
+    run again, up to `attempts` times; `fn` must be safe to repeat. After
+    that it raises, or with `required` False returns None."""
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
 
@@ -46,6 +50,8 @@ def profile(fn, attempts: int = 3) -> dict:
                 kernels[evt.key] = [evt.count, us]
         if device_us > 0.0:
             return {"launches": launches, "device_us": device_us, "kernels": kernels}
+    if not required:
+        return None
     raise RuntimeError(f"torch.profiler recorded no device time in {attempts} windows")
 
 
@@ -101,3 +107,37 @@ def call_device_us(fn, reps: int = 20) -> tuple[float, float, list[str]]:
         return sum(us for _, us in hits) / max(n for n, _ in hits)
 
     return per_call(warm), per_call(cold), sorted(warm)
+
+
+def host_timers(targets, sync: bool):
+    """Wrap each (module, name) of `targets` with a host timer, where the
+    module has that name; with `sync` each call is bracketed by
+    torch.cuda.synchronize(), so that the time is the call's own host and
+    device work. Returns the records {name: [calls, seconds]} and a function
+    that restores the originals."""
+    records, saved = {}, []
+    for module, name in targets:
+        if not hasattr(module, name):
+            continue
+        fn = getattr(module, name)
+        records[name] = [0, 0.0]
+
+        def timed(*args, _fn=fn, _rec=records[name], **kwargs):
+            if sync:
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = _fn(*args, **kwargs)
+            if sync:
+                torch.cuda.synchronize()
+            _rec[0] += 1
+            _rec[1] += time.perf_counter() - t0
+            return out
+
+        saved.append((module, name, fn))
+        setattr(module, name, timed)
+
+    def restore():
+        for module, name, fn in saved:
+            setattr(module, name, fn)
+
+    return records, restore

@@ -50,39 +50,6 @@ def _load(name: str, path: Path):
     return module
 
 
-def _timers(targets, sync):
-    """Wrap each (module, name) with a host timer; returns the records
-    {name: [calls, seconds]} and a function that restores the originals."""
-    import torch
-
-    records, saved = {}, []
-    for module, name in targets:
-        if not hasattr(module, name):
-            continue
-        fn = getattr(module, name)
-        records[name] = [0, 0.0]
-
-        def timed(*args, _fn=fn, _rec=records[name], **kwargs):
-            if sync:
-                torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = _fn(*args, **kwargs)
-            if sync:
-                torch.cuda.synchronize()
-            _rec[0] += 1
-            _rec[1] += time.perf_counter() - t0
-            return out
-
-        saved.append((module, name, fn))
-        setattr(module, name, timed)
-
-    def restore():
-        for module, name, fn in saved:
-            setattr(module, name, fn)
-
-    return records, restore
-
-
 def measure(tree: Path) -> dict:
     sys.path.insert(0, str(tree))
     import torch
@@ -116,7 +83,7 @@ def measure(tree: Path) -> dict:
             for k in KERNELS
         }
         if exchange == "sender":
-            rec, restore = _timers([(HOT, "internal_slot"), (HOT, "variable_slot"),
+            rec, restore = prof.host_timers([(HOT, "internal_slot"), (HOT, "variable_slot"),
                                     (T, "gather_rows")], sync=False)
             state = T.run_ticks(state, sdf, params, 10)
             torch.cuda.synchronize()
@@ -127,7 +94,7 @@ def measure(tree: Path) -> dict:
                       (T, "external_factor_pass"), (HOT, "_ext_sum_hot"),
                       (T, "seed_cavities"), (T, "deliver_responses"),
                       (T, "update_connectivity")]
-            rec, restore = _timers(phases, sync=True)
+            rec, restore = prof.host_timers(phases, sync=True)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             state = T.run_ticks(state, sdf, params, 10)

@@ -1,7 +1,8 @@
 """The state and parameter bridge (magics_tpu_torch/convert.py), the port's
 scenario builder against magics_tpu's, the port's independence from JAX, the
-sender and receiver exchanges running, and the configurations the port does
-not carry yet (they raise NotImplementedError)."""
+sender and receiver exchanges running, and the configurations the first
+slices refused (the grid path, `scan_schedule`, the collision event
+records): they run now, and only an unknown exchange raises."""
 
 from __future__ import annotations
 
@@ -115,12 +116,21 @@ UNPORTED = {
 
 @pytest.mark.parametrize("config", sorted(UNPORTED))
 def test_unported_configurations_raise(config):
+    """The configurations the first slices refused with NotImplementedError
+    run now (tests/test_torch_grid.py holds them against the JAX package):
+    2 ticks leave a finite state in which the robots moved. Only a name the
+    port does not know raises."""
     specs = TB.circle_formation(6, circle_radius=5.0, target_speed=8.0)
     params, state, sdf = TB.build_scenario(
         specs, device="cpu", **_kw(torch.float32, **UNPORTED[config])
     )
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TT.run_ticks(state, sdf, params, 2)
+    out = TT.run_ticks(state, sdf, params, 2)
+    for name, x in convert.state_to_numpy(out).items():
+        if x.dtype.kind == "f" and name not in ("pos_log", "vel_log"):
+            assert np.isfinite(x).all(), name
+    assert np.abs(out.pos.numpy() - state.pos.numpy()).max() > 0.1
+    with pytest.raises(ValueError, match="ext_exchange"):
+        dataclasses.replace(params, ext_exchange="broadcast")
 
 
 EXCHANGES = {

@@ -76,7 +76,9 @@ def test_imports_load_no_jax_package():
         [sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120
     )
     assert proc.returncode == 0, proc.stderr
-    assert "magics_tpu_torch.kernels.gbp_slot" in port
+    for module in ("magics_tpu_torch.kernels.gbp_slot", "magics_tpu_torch.graph.grid",
+                   "magics_tpu_torch.graph.chunk", "magics_tpu_torch.bench.scale"):
+        assert module in port, module
 
 
 def test_constants_equal_jax():

@@ -21,6 +21,12 @@ vector or matrix of each field within RTOL of its own scale
 chip_smoke.py states why); for the message table, whose kernel repeats its
 plain version's float order, no zero-pattern flip and IR_RTOL of each
 message's scale (chip_smoke.py's); the row gather bit for bit.
+
+Chunks captured as CUDA graphs (graph/chunk.py) are held bit for bit
+against the eager ticks on the crossing, dense and grid, under all three
+exchanges, and with comms failure drawn from a registered generator; the
+four kernels also run at the swarm-scale shapes of
+magics_tpu_torch/bench/scale.py (R=16384, K=24, V=21).
 """
 
 from __future__ import annotations
@@ -494,3 +500,186 @@ def test_sender_kernel_path_tracks_plain_path(device):
     assert float((kern.pos - state.pos).abs().max()) > 1.0
     assert float(kern.ext_inbox.abs().sum()) > 0.0
     assert float((plain.pos - kern.pos).abs().max()) < 0.1
+
+
+# --------------------------------------------------------------------------
+# chunks captured as CUDA graphs (graph/chunk.py) against the eager ticks
+# --------------------------------------------------------------------------
+
+GRID = dict(grid_cell_size=10.0, grid_capacity=16, collision_partners=8)
+
+
+def _smoke():
+    """chip_smoke.py, whose input builders and bit comparison these tests
+    share with the card's smoke run."""
+    import importlib.util
+    import pathlib
+    import sys
+
+    if "chip_smoke" not in sys.modules:
+        path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
+        spec = importlib.util.spec_from_file_location("chip_smoke", path)
+        module = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(module)
+        sys.modules["chip_smoke"] = module
+    return sys.modules["chip_smoke"]
+
+
+def _assert_states_bit_equal(a, b) -> None:
+    bad = _smoke().differing_fields(torch, a, b)
+    assert not bad, f"fields differ: {bad}"
+
+
+@pytest.mark.parametrize("path", ["dense", "grid"])
+@pytest.mark.parametrize("exchange", ["sender", "receiver", "receiver_compact"])
+def test_graph_replay_bit_equal_to_eager(device, exchange, path):
+    """Two replays of a captured 4-tick chunk against 8 eager ticks from the
+    same state, the kernels on: every field bit-equal (no op of the tick
+    uses atomics). The capture counts each kernel's launches for one chunk;
+    replays add none."""
+    from magics_tpu_torch.graph.chunk import compile_ticks
+
+    params, state, sdf = crossing(device, exchange, use_pallas=None, log_every=2,
+                                  log_capacity=3, collision_log_capacity=8,
+                                  **(GRID if path == "grid" else {}))
+    state = T.run_ticks(state, sdf, params, 3)
+    eager = T.run_ticks(state, sdf, params, 8)
+    graph = compile_ticks(state, sdf, params, 4)
+    n_int = sum(1 for i, _ in params.schedule if i)
+    n_ext = sum(1 for _, e in params.schedule if e)
+    assert graph.launches == {
+        "internal_slot": 4 * n_int, "variable_slot": 4 * n_ext,
+        "interrobot_slot": 4 * n_ext if exchange == "sender" else 0,
+        "gather_rows": 4 * n_ext * (2 if exchange == "sender" else 1)}
+    before = {**G.launch_counts, **IR.launch_counts, **L.launch_counts}
+    graph.replay()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert {**G.launch_counts, **IR.launch_counts, **L.launch_counts} == before
+    _assert_states_bit_equal(graph.state, eager)
+    assert float((eager.pos - state.pos).abs().max()) > 1.0
+    # re-seeded by a device copy, it runs the same chunk again
+    graph.load(state)
+    graph.replay()
+    _assert_states_bit_equal(graph.state, T.run_ticks(state, sdf, params, 4))
+
+
+def test_graph_replay_outlives_other_cached_constants(device):
+    """A captured chunk reads the cached timesteps tensor on every replay:
+    after 40 other (timesteps, dtype, device) keys have been cached and the
+    allocator's blocks churned, a replay is still bit-equal to eager."""
+    from magics_tpu_torch.graph.chunk import compile_ticks
+
+    params, state, sdf = crossing(device, "receiver_compact", use_pallas=None)
+    graph = compile_ticks(state, sdf, params, 2)
+    for k in range(40):
+        other = replace(params, variable_timesteps=tuple(range(k + 2)))
+        T._timesteps(other, torch.float32, state.device)
+        del other
+        churn = torch.full((4096,), float(k), device=device)
+        del churn
+    graph.replay()
+    _assert_states_bit_equal(graph.state, T.run_ticks(state, sdf, params, 2))
+
+
+def test_graph_comms_failure_draws_match_eager(device):
+    """comms_failure_rate 0.3 from a registered generator: each replay draws
+    anew, and the antenna masks of 6 one-tick replays equal those of 6 eager
+    ticks from a generator in the same state."""
+    from magics_tpu_torch.graph.chunk import compile_ticks
+
+    params, state, sdf = crossing(device, "sender", use_pallas=None, comms_failure_rate=0.3)
+    gen_eager = torch.Generator(device=device).manual_seed(5)
+    gen_graph = torch.Generator(device=device).manual_seed(5)
+    eager, masks_eager = state, []
+    for _ in range(6):
+        eager = T.step(eager, sdf, params, generator=gen_eager)
+        masks_eager.append(eager.antenna.clone())
+    graph = compile_ticks(state, sdf, params, 1, generator=gen_graph)
+    masks_graph = []
+    for _ in range(6):
+        graph.replay()
+        masks_graph.append(graph.state.antenna.clone())
+    eager_m, graph_m = torch.stack(masks_eager), torch.stack(masks_graph)
+    n = eager_m.numel()
+    share = float((~graph_m).float().mean())
+    print(f"comms failure: graph share {share:.3f}, eager {float((~eager_m).float().mean()):.3f}"
+          f" of {n} draws; masks equal: {torch.equal(eager_m, graph_m)}")
+    assert not all(torch.equal(masks_graph[0], m) for m in masks_graph[1:])   # drawn anew
+    assert torch.equal(eager_m, graph_m)
+    _assert_states_bit_equal(graph.state, eager)
+
+
+def test_compile_ticks_refuses_a_state_off_the_card(device):
+    from magics_tpu_torch.graph.chunk import compile_ticks
+
+    params, state, sdf = crossing("cpu")
+    with pytest.raises(RuntimeError, match="cuda"):
+        compile_ticks(state, sdf, params, 2)
+
+
+# --------------------------------------------------------------------------
+# the four kernels at the scale shapes (R=16384, K=24, V=21)
+# --------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def scale_states(device):
+    """The scale workload of magics_tpu_torch/bench/scale.py at R=16384,
+    after 3 eager ticks of the grid path, under "sender" and
+    "receiver_compact": {exchange: (params, state, sdf)}."""
+    from magics_tpu_torch.bench.scale import scale_scenario
+
+    out = {}
+    for exchange in ("sender", "receiver_compact"):
+        params, state, sdf = scale_scenario(16384, exchange, device=device)
+        out[exchange] = params, T.run_ticks(state, sdf, params, 3), sdf
+    return out
+
+
+def test_slot_kernels_at_scale_shapes(scale_states):
+    params, state, sdf = scale_states["receiver_compact"]
+    assert state.n_robots == 16384 and params.n_slots == 24 and params.n_vars == 21
+    h = _smoke().slot_inputs(state, params)
+    sp = HOT.slot_params(params)
+    world = (params.world_width, params.world_height)
+    _assert_close(G.internal_slot(h, sdf, world, sp),
+                  G.internal_slot_fused_reference(h, sdf, world, sp))
+    var_in = {n: h[n] for n in G._VAR_IN_FIELDS}
+    _assert_variable_slot(var_in, sp)
+
+
+def test_interrobot_kernel_at_scale_shapes(scale_states):
+    """The sender state's table inputs with each external position moved to
+    a seeded point within 1.2 safety distances of its snapshot (the ring's
+    4.9 m spacing leaves no factor inside the 4.4 m safety distance yet),
+    every third robot's cavities unseeded on every other variable."""
+    params, state, _ = scale_states["sender"]
+    inputs = IR.sender_inputs(state, params)
+    R, K, V1 = inputs["seeded"].shape
+    assert (R, K, V1) == (16384, 24, 20)
+    inputs["seeded"] = inputs["seeded"].clone()
+    inputs["seeded"][::3, :, ::2] = False
+    g = torch.Generator(device=state.device).manual_seed(0)
+    dist = 1.2 * inputs["safety"][:, None, None] * torch.rand(
+        (R, K, V1), generator=g, device=state.device)
+    angle = 2 * np.pi * torch.rand((R, K, V1), generator=g, device=state.device)
+    offset = torch.stack([dist * torch.cos(angle), dist * torch.sin(angle)], dim=-1)
+    inputs["p_ext"] = (state.snap_mu[:, None, 1:, :2] + offset).contiguous()
+    _assert_table_close(inputs, params.sigma_factor_interrobot, "scale shapes")
+
+
+@pytest.mark.parametrize("site", ["sender delivery", "sender response", "receiver pack",
+                                  "receiver_compact table"])
+def test_gather_rows_kernel_at_scale_shapes(scale_states, site):
+    """The row gather's call sites at R=16384, K=24 (chip_smoke.gather_sites):
+    393,216 rows of the peers' outboxes [R K, 80 floats] or positions
+    [R, 40], masked, and of the receivers' tables [R, 480] and the compact
+    tables [R, 160], unmasked; seeded tables, the state's indexes."""
+    params, state, _ = scale_states["sender"]
+    R, K = state.nbr_idx.shape
+    assert bool(state.nbr_mask.any())
+    tab, idx, m = _smoke().gather_sites(torch, state)[site]
+    got = L.gather_rows(tab, idx, m)
+    torch.cuda.synchronize()
+    assert got.shape == (R * K, tab.shape[1])
+    assert torch.equal(got, L.gather_rows_reference(tab, idx, m))
