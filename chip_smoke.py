@@ -58,6 +58,25 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    records the kernel, else of one eager tick, named in `device_us_of`)
    and its bound at these shapes, one eager tick's time by phase, and
    checks each kernel against its plain version at these shapes.
+9. The Simulator shell (sim/simulator.py), on scenarios built in memory
+   (TOML text, formation dicts, builtin or empty environments; no file, no
+   YAML): (a) the Circle Experiment, 50 robots (K=49, V=21, 50 + 10 slots)
+   through `Simulator.run` in 100-tick CUDA graphs, to the contract of
+   tests/test_scenario_behavior.py (every robot completes, makespan < 60 s,
+   no neighbour overflow), then export and analysis (finite LDJ and
+   distance, mean distance >= 100 m), with the capture's launches per tick,
+   the graphs alive (at most two) and the host ms of a diagnostics sample
+   and of the log harvest; (b) one tick of its state mid-crossing with the
+   kernels against the plain passes, each kernel against its plain version
+   at these shapes and K3 / K4 at K=128, and each kernel's device time per
+   launch there; (c) reset() against a fresh Simulator, and a checkpoint at
+   tick 100 resumed in a fresh Simulator bit-equal to the uninterrupted run
+   at tick 150; (d) comms failure at 0.7: one seed twice (and after reset())
+   bit-equal, another seed different, the failed share 0.7 +- 0.05;
+   (e) in-flight rrt-star missions on the builtin intersection, every one
+   done, the planner backend and the loads of the state into the graphs;
+   (f) 1024 robots for 100 ticks through `Simulator.run` against phase 6's
+   sender graph: the shell's overhead per tick.
 
 The last two lines are a JSON object of per-kernel results and the JSON
 status line `{"ok": true, "device": {...}}`. Nothing here imports JAX. The
@@ -66,6 +85,7 @@ script refuses to run without a CUDA device; no check is caught.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -204,33 +224,6 @@ def read_counts() -> dict:
     from magics_tpu_torch.kernels import gbp_slot, ir_slot, layout
 
     return {**gbp_slot.launch_counts, **ir_slot.launch_counts, **layout.launch_counts}
-
-
-def bench_scenario(torch, exchange="receiver_compact", **overrides):
-    """The bench.py workload, built by the port with its defaults (on the
-    card, the GBP slots through the kernels) unless `overrides`, further
-    arguments of `build_scenario`, say otherwise."""
-    from magics_tpu_torch.sim.builder import ScheduleKind, build_scenario, circle_formation
-
-    speed = 15.0
-    return build_scenario(
-        circle_formation(R_BENCH, circle_radius=800.0, target_speed=speed),
-        target_speed=speed,
-        planning_horizon=5.0,
-        hz=10.0,
-        comms_radius=50.0,
-        internal=50,
-        external=10,
-        schedule=ScheduleKind.INTERLEAVE_EVENLY,
-        n_slots=32,
-        world=(2000.0, 2000.0),
-        sdf=np.ones((128, 128)),
-        dtype=torch.float32,
-        despawn_on_final_waypoint=False,
-        tracking_enabled=False,
-        ext_exchange=exchange,
-        **overrides,
-    )
 
 
 def obstacle_sdf(n: int = 128) -> np.ndarray:
@@ -490,12 +483,13 @@ def gather_sites(torch, state) -> dict:
 def kernel_phase(torch, device) -> dict:
     from dataclasses import replace
 
+    from magics_tpu_torch.bench.headline import bench_scenario
     from magics_tpu_torch.graph import factors as F
     from magics_tpu_torch.graph import tick as T
     from magics_tpu_torch.kernels import gbp_slot as G
     from magics_tpu_torch.kernels import hot as HOT
 
-    params, state, sdf = bench_scenario(torch)
+    params, state, sdf = bench_scenario()
     state = T.run_ticks(state, sdf, params, 3)
     world = (params.world_width, params.world_height)
     sdf_obs = torch.as_tensor(obstacle_sdf(), device=device, dtype=torch.float32)
@@ -556,7 +550,7 @@ def kernel_phase(torch, device) -> dict:
                 OPS_PER_ITEM["variable_slot"] * n_gated * params.n_vars, cold=True),
     }
 
-    params, state, sdf = bench_scenario(torch, "sender")
+    params, state, sdf = bench_scenario("sender")
     state = T.run_ticks(state, sdf, params, 3)
     results["interrobot_slot"] = interrobot_check(torch, state, params, "synthetic")
     results["gather_rows"] = gather_check(torch, state)
@@ -739,9 +733,10 @@ def time_slice(torch, params, state, sdf, profile) -> dict:
 
 
 def slice_phase(torch, exchange: str) -> dict:
+    from magics_tpu_torch.bench.headline import bench_scenario
     from magics_tpu_torch.profiling import profile
 
-    params, state, sdf = bench_scenario(torch, exchange)
+    params, state, sdf = bench_scenario(exchange)
     if state.device.type != "cuda" or not params.uses_kernels(state.device):
         raise AssertionError(f"the default-built bench scenario is on {state.device}, "
                              f"use_pallas={params.use_pallas}")
@@ -770,30 +765,12 @@ def slice_phase(torch, exchange: str) -> dict:
 
 def metric_line(params, exchange: str, R: int, mean_degree: float, overflow: int,
                 ticks_per_s: float, runner: str) -> dict:
-    """A metric line in bench.py's format (bench.py:96-116): the messages a
-    tick sends, counted per robot (internal slot 2 x the internal factors'
-    messages + K_active (V-1); external slot 2 K_active (V-1)), times ticks
-    per second."""
-    V = params.n_vars
-    n_int = sum(1 for i, _ in params.schedule if i)
-    n_ext = sum(1 for _, e in params.schedule if e)
-    per_factor = 2 * (V - 1) * params.dynamic_enabled + (V - 2) * (
-        params.obstacle_enabled + params.tracking_enabled)
-    msgs_per_tick = R * (
-        n_int * (2 * per_factor + mean_degree * (V - 1))
-        + n_ext * (2 * mean_degree * (V - 1))
-    )
-    return {
-        "metric": "gbp_message_updates_per_s",
-        "value": round(msgs_per_tick * ticks_per_s),
-        "unit": (
-            f"messages/s (R={R}, V={V}, {n_int}i+{n_ext}e per tick, "
-            + ("ext=sender, " if exchange == "sender" else "")
-            + f"mean_degree={mean_degree:.1f}, nbr_overflow={overflow})"
-        ),
-        "vs_baseline": round(ticks_per_s / params.hz, 3),
-        "runner": runner,
-    }
+    """bench.py's metric line (bench.headline.metric_line: its keys and
+    unit string) with the exchange and the runner beside it."""
+    from magics_tpu_torch.bench.headline import metric_line as headline_line
+
+    return {**headline_line(params, R, mean_degree, overflow, ticks_per_s),
+            "ext_exchange": exchange, "runner": runner}
 
 
 def bits_equal(torch, a, b) -> bool:
@@ -840,10 +817,11 @@ def time_replays(torch, graph, reps: int) -> dict:
     return {"host_s": host, "event_ms": events}
 
 
-def graph_phase(torch, exchange: str, state, params, sdf, eager_ms: float) -> None:
+def graph_phase(torch, exchange: str, state, params, sdf, eager_ms: float) -> float:
     """A slice's workload from its final state as 10-tick CUDA graphs: the
     capture's launch counts, 2 replays bit-equal to 20 eager ticks, 3 timed
-    chunks, the graph's device time in one profiled replay, a metric line."""
+    chunks, the graph's device time in one profiled replay, a metric line.
+    Returns the graph's ms per tick (host clock)."""
     from magics_tpu_torch.graph import tick as T
     from magics_tpu_torch.graph.chunk import compile_ticks
     from magics_tpu_torch.profiling import profile
@@ -890,16 +868,18 @@ def graph_phase(torch, exchange: str, state, params, sdf, eager_ms: float) -> No
         f"a replay (median of {reps}); device time per tick {recorded}")
     log(json.dumps(metric_line(params, exchange, state.n_robots, guards["mean_degree"],
                                guards["nbr_overflow"], 1e3 / ms, "graph")))
+    return ms
 
 
 def grid_dense_phase(torch) -> None:
     """20 eager ticks of the bench workload on the grid path against the
     dense path: every shared field bit-equal, grid_overflow 0."""
+    from magics_tpu_torch.bench.headline import bench_scenario
     from magics_tpu_torch.graph import tick as T
 
     for exchange in ("sender", "receiver_compact"):
-        pd, sd, sdf = bench_scenario(torch, exchange)
-        pg, sg, _ = bench_scenario(torch, exchange, grid_cell_size=50.0, grid_capacity=32,
+        pd, sd, sdf = bench_scenario(exchange)
+        pg, sg, _ = bench_scenario(exchange, grid_cell_size=50.0, grid_capacity=32,
                                    collision_partners=8)
         sd = T.run_ticks(sd, sdf, pd, 20)
         sg = T.run_ticks(sg, sdf, pg, 20)
@@ -1092,6 +1072,468 @@ def scale_phase(torch, exchange: str) -> dict:
     return kernels
 
 
+# --------------------------------------------------------------------------
+# phase 9: the Simulator shell
+# --------------------------------------------------------------------------
+
+# The Circle Experiment as BASELINE.md cites the reference's
+# config/scenarios/Circle Experiment/config.toml:49-74 (iterations,
+# horizon, speed, comms, rate, seed, the inter-robot sigma), with the
+# sweep's largest robot count (50, scripts/run-circle-expertiment.fish:24)
+# on a 50 m-radius circle. The robot radius, 2.5 m, is the one
+# tests/test_config_env.py:test_circle_formation_positions places this
+# formation's robots with, and the environment an empty 150 m tile (the
+# reference's files are not in the repo). The JAX Simulator on the CPU
+# finishes this scenario in 200 ticks, mean distance 105.0 m; with every
+# radius 2 m, 11 of the 50 robots jam for good, on the card as in JAX.
+CIRCLE_TOML = """
+[simulation]
+hz = 10.0
+prng-seed = 805
+max-time = 120.0
+
+[gbp]
+sigma-factor-interrobot = 0.005
+[gbp.iteration-schedule]
+internal = 50
+external = 10
+schedule = "interleave-evenly"
+
+[robot]
+target-speed = 15.0
+planning-horizon = 5.0
+[robot.communication]
+radius = 50.0
+failure-rate = {failure_rate}
+"""
+CIRCLE_RADIUS = "[robot.radius]\nmin = {r}\nmax = {r}\n"
+CIRCLE_ROBOTS = 50
+# chunk sizes: the Circle Experiment's run and the checkpoint check, the
+# comms-failure runs (an antenna sample after each chunk), the missions'
+# runs (chunks of 5 while a mission is active), the swarm-scale run
+SIM_CHUNK = 100
+FAILURE_CHUNK = 5
+MISSION_CHUNK = 20
+SWARM_R = 1024
+SWARM_TICKS = 100
+FAILURE_RATE = 0.7
+
+
+def circle_scenario(robots: int = CIRCLE_ROBOTS, radius: float = 50.0, tile: float = 150.0,
+                    failure_rate: float = 0.0, toml: str = CIRCLE_TOML, robot_radius=2.5,
+                    name="Circle Experiment"):
+    """A Circle Experiment Scenario built in memory (TOML text, a formation
+    dict, an empty environment): no file is read and no YAML parsed."""
+    from magics_tpu_torch.config.formation import Formation, FormationGroup
+    from magics_tpu_torch.config.loader import Scenario
+    from magics_tpu_torch.config.schema import Config
+    from magics_tpu_torch.env.model import Environment, SdfSettings
+
+    circle = {"circle": {"radius": radius, "center": {"x": 0.5, "y": 0.5}}}
+    formation = Formation.parse({
+        "robots": robots,
+        "initial-position": {"shape": circle, "placement-strategy": "equal"},
+        "waypoints": [{"shape": circle, "projection-strategy": "cross"}],
+        # a robot finishes where its current position reaches its goal
+        # (the default, the horizon variable's, finishes 75 m early)
+        "finished-when-intersects": {"intersects-with": "current"},
+    })
+    env = Environment(grid=["█"], tile_size=tile, path_width=0.1325,
+                      sdf=SdfSettings(resolution=200, expansion=0.1, blur=0.01))
+    text = toml.format(failure_rate=failure_rate) + CIRCLE_RADIUS.format(r=robot_radius)
+    return Scenario(name=name, config=Config.from_toml(text),
+                    environment=env, formations=FormationGroup([formation]))
+
+
+# One tick, kernels against plain passes: 60 slots of float32 roundoff in
+# two summation orders compound, so a whole tick is not held to RTOL (each
+# kernel is, alone, at the same shapes). On the CPU the kernels' plain
+# versions against the plain passes, one Circle tick from tick 30, differ
+# by up to 6.1e-4 of scale (the inter-robot messages); a wrong term moves
+# an entry by O(its scale), so 1e-2 of scale still catches it.
+TICK_RTOL = 1e-2
+
+
+def state_fields_compare(torch, label: str, got, want) -> dict:
+    """Two states after one tick, the kernels' and the plain passes': each
+    vector or matrix of the belief and message fields within TICK_RTOL of
+    its own scale (gbp_slot.scaled_error), positions within SMALL_DRIFT_M,
+    the belief guard's decisions flipped on at most MAX_FLIP_SHARE of the
+    (robot, variable) pairs, the discrete fields equal."""
+    from magics_tpu_torch.core.linalg import belief_covariance
+    from magics_tpu_torch.kernels.gbp_slot import RESPONSE_OPERAND, scaled_error
+
+    fields = ("belief_eta", "belief_lam", "belief_mean", "snap_eta", "snap_lam", "snap_mu",
+              "dyn_v2f_eta", "dyn_v2f_lam", "dyn_v2f_mu", "dyn_f2v_eta", "dyn_f2v_lam",
+              "obs_v2f_mu", "obs_f2v_eta", "obs_f2v_lam", "ir_v2f_ext_pos", "ir_f2v_ext",
+              "ext_inbox", "pos")
+    rel = {}
+    for name in fields:
+        refs = {n: getattr(want, n) for n in (name, RESPONSE_OPERAND.get(name)) if n}
+        rel[name] = scaled_error(name, getattr(got, name), refs, hot_layout=False)
+    valid = [(lam.abs() > 1e-6).any(-1).any(-1) & belief_covariance(lam)[1]
+             for lam in (got.belief_lam, want.belief_lam)]
+    flips = int((valid[0] != valid[1]).sum())
+    exact = [n for n in ("nbr_idx", "nbr_mask", "ir_int_seeded", "msg_counts", "active",
+                         "completed") if not torch.equal(getattr(got, n), getattr(want, n))]
+    worst = max(rel, key=rel.get)
+    live = int((want.ir_f2v_ext != 0).any(dim=-1).sum())
+    log(f"[sim] {label}: kernels vs plain passes, worst field {worst} {rel[worst]:.3e} of "
+        f"scale, belief-guard flips {flips} of {valid[0].numel()}, {live} live inter-robot "
+        f"messages, max |dpos| {float((got.pos - want.pos).abs().max()):.3e} m; every field "
+        f"over its own scale: " + ", ".join(f"{f} {e:.1e}" for f, e in rel.items() if e > 0.0))
+    drift = float((got.pos - want.pos).abs().max())
+    bad = {f: e for f, e in rel.items() if e > TICK_RTOL}
+    if (bad or flips > MAX_FLIP_SHARE * valid[0].numel() or exact or not live
+            or drift >= SMALL_DRIFT_M):
+        raise AssertionError(f"{label}: fields past {TICK_RTOL}: {bad}; flips {flips}; "
+                             f"discrete fields differ {exact}; live messages {live}; "
+                             f"drift {drift} m")
+    return {"worst_field": worst, "worst_rel": rel[worst], "flips": flips, "drift_m": drift}
+
+
+def gather_bits(torch, state, label: str) -> None:
+    """The row gather bit-equal to its plain version at every call site of
+    `state`'s shapes."""
+    from magics_tpu_torch.kernels import layout as L
+
+    for site, (tab, idx, m) in gather_sites(torch, state).items():
+        if not torch.equal(L.gather_rows(tab, idx, m), L.gather_rows_reference(tab, idx, m)):
+            raise AssertionError(f"gather_rows {label} {site}: differs from its plain version")
+    R, K = state.nbr_idx.shape
+    log(f"[sim] gather_rows {label} (R={R}, K={K}): bit-equal to its plain version at all "
+        f"four call sites")
+
+
+def slot_kernels_check(torch, state, params, sdf, label: str) -> None:
+    """K1 and K2 against their plain versions on `state`'s slot inputs."""
+    from magics_tpu_torch.kernels import gbp_slot as G
+    from magics_tpu_torch.kernels import hot as HOT
+
+    sp = HOT.slot_params(params)
+    world = (params.world_width, params.world_height)
+    h = slot_inputs(state, params)
+    compare(torch, f"internal_slot {label}", G.internal_slot(h, sdf, world, sp),
+            G.internal_slot_fused_reference(h, sdf, world, sp), max_flips=0)
+    var_in = {name: h[name] for name in G._VAR_IN_FIELDS}
+    want = G.variable_slot_reference(var_in, sp)
+    compare(torch, f"variable_slot {label}", G.variable_slot(var_in, sp), want,
+            max_flips=MAX_FLIP_SHARE * want["belief_mean"][0].numel())
+
+
+def wide_k_check(torch) -> None:
+    """K3 and K4 at K=128, V=21 on a synthetic state: 160 robots on a 100 m
+    circle, every pair within the 400 m comms radius, so all 128 slots fill
+    (K3 splits a robot's 128 x 20 factors over blocks of at most 512
+    threads), after 2 ticks; K3 on interrobot_check's synthetic variant."""
+    from magics_tpu_torch.graph import tick as T
+    from magics_tpu_torch.sim.builder import ScheduleKind, build_scenario, circle_formation
+
+    params, state, sdf = build_scenario(
+        circle_formation(160, circle_radius=100.0, target_speed=15.0, robot_radius=1.0),
+        target_speed=15.0, planning_horizon=5.0, hz=10.0, comms_radius=400.0, internal=4,
+        external=2, schedule=ScheduleKind.INTERLEAVE_EVENLY, n_slots=128,
+        world=(400.0, 400.0), despawn_on_final_waypoint=False, tracking_enabled=False)
+    state = T.run_ticks(state, sdf, params, 2)
+    if int(state.nbr_mask.sum(dim=1).min()) != 128 or params.n_vars != 21:
+        raise AssertionError("wide-K input: not every slot filled")
+    interrobot_check(torch, state, params, "synthetic K=128")
+    gather_bits(torch, state, "synthetic K=128")
+
+
+def circle_phase(torch) -> dict:
+    """(a) The Circle Experiment through Simulator.run on the card, its
+    export and analysis; (b) the kernels at its shapes (K=49)."""
+    from magics_tpu_torch import analysis
+    from magics_tpu_torch.graph import tick as T
+    from magics_tpu_torch.graph.chunk import clone_state
+    from magics_tpu_torch.io.diagnostics import DiagnosticsRecorder
+    from magics_tpu_torch.profiling import profile
+    from magics_tpu_torch.sim.simulator import Simulator
+
+    t0 = time.perf_counter()
+    sim = Simulator(circle_scenario())
+    build_s = time.perf_counter() - t0
+    p = sim.params
+    if sim.state.device.type != "cuda" or not p.uses_kernels(sim.state.device):
+        raise AssertionError(f"the Simulator's state is on {sim.state.device}, "
+                             f"use_pallas={p.use_pallas}")
+    log(f"[sim] (a) Circle Experiment: R={len(sim.specs)}, V={p.n_vars}, K={p.n_slots}, "
+        f"{sum(i for i, _ in p.schedule)}i+{sum(e for _, e in p.schedule)}e, "
+        f"exchange {p.ext_exchange}; built in {build_s:.2f} s")
+    reset_counts()
+    t0 = time.perf_counter()
+    result = sim.run(chunk_ticks=SIM_CHUNK)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = read_counts()
+    graph = sim.graphs[SIM_CHUNK]
+    per_tick = {k: v / SIM_CHUNK for k, v in graph.launches.items()}
+    capture_s = sum(s for _, s in sim.stats.captures)
+    if per_tick != {k: float(v) for k, v in LAUNCHES_PER_TICK["sender"].items()}:
+        raise AssertionError(f"(a): capture launches per tick {per_tick}")
+    if not all(launches.values()):
+        raise AssertionError(f"(a): a kernel of the Simulator's path never launched: {launches}")
+    if (result["completed"] != len(sim.specs) or result["makespan"] >= 60.0
+            or result["nbr_overflow"] != 0):
+        raise AssertionError(f"(a) Circle Experiment contract broken: {result}")
+    if sim.stats.max_graphs_alive > 2 or len(sim.graphs) > 2:
+        raise AssertionError(f"(a): {sim.stats.max_graphs_alive} graphs alive")
+    replay_ms = 1e3 * (run_s - capture_s) / result["ticks"]
+    t0 = time.perf_counter()
+    DiagnosticsRecorder(n_vars=p.n_vars).sample(sim.state, p, result["ticks"] * sim.dt)
+    sample_ms = 1e3 * (time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    sim._harvest_log(sim.state)
+    harvest_ms = 1e3 * (time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    export = sim.export()
+    export_ms = 1e3 * (time.perf_counter() - t0)
+    a = analysis.analyse(export)
+    ldj, dist = a["ldj"], a["distance_travelled"]
+    if (ldj is None or dist is None or not np.isfinite([ldj["mean"], dist["mean"]]).all()
+            or dist["mean"] < 100.0 or ldj["n"] != len(sim.specs)):
+        raise AssertionError(f"(a) analysis: ldj {ldj}, distance {dist}")
+    log(f"[sim] (a) {result}")
+    log(f"[sim] (a) run {run_s:.2f} s: capture {capture_s:.2f} s ({SIM_CHUNK} ticks, warm-up "
+        f"chunk included), {replay_ms:.3f} ms a tick beside it (replays, diagnostics, the "
+        f"last chunk's harvest); graphs alive {sorted(sim.graphs)}, at most "
+        f"{sim.stats.max_graphs_alive}; {sim.stats.graph_chunks} graph chunks, "
+        f"{sim.stats.eager_chunks} eager; launches per tick (capture) {per_tick}; launches "
+        f"in the run {launches}")
+    log(f"[sim] (a) host ms: diagnostics.sample {sample_ms:.3f}, _harvest_log {harvest_ms:.3f} "
+        f"({len(sim.specs)} robots x {int(sim.state.log_head)} samples), export {export_ms:.3f}; "
+        f"analysis: LDJ mean {ldj['mean']:.3f}, distance mean {dist['mean']:.3f} m, makespan "
+        f"{a['makespan']:.1f} s, rr_collisions {result['rr_collisions']}")
+
+    # (b) one tick from mid-crossing with the kernels and with the plain
+    # passes, each kernel at these shapes, and their device times
+    sim.reset()
+    sim.run(max_ticks=30, chunk_ticks=SIM_CHUNK)    # 30 eager ticks: a partial chunk
+    mid = clone_state(sim.state)
+    kern = T.step(mid, sim.sdf, p, sim.env_dist, generator=sim.generator)
+    plain = T.step(mid, sim.sdf, dataclasses.replace(p, use_pallas=False), sim.env_dist,
+                   generator=sim.generator)
+    tick_cmp = state_fields_compare(torch, "(b) one tick at K=49", kern, plain)
+    slot_kernels_check(torch, mid, p, sim.sdf, "Circle K=49")
+    interrobot_check(torch, mid, p, "Circle K=49")
+    gather_bits(torch, mid, "Circle K=49")
+    wide_k_check(torch)
+    prof = profile(lambda: T.step(mid, sim.sdf, p, sim.env_dist, generator=sim.generator))
+    us = {}
+    for name, kname in KERNEL_NAMES.items():
+        hits = [(n, t) for key, (n, t) in prof["kernels"].items() if kname in key]
+        count = sum(n for n, _ in hits)
+        us[name] = sum(t for _, t in hits) / count if count else None
+    log(f"[sim] (b) device us per launch in one eager Circle tick at tick 30 (torch.profiler): "
+        + ", ".join(f"{k} {v:.3f}" if v is not None else f"{k} not recorded"
+                    for k, v in us.items()))
+    return {"sim": sim, "launches": launches, "launches_per_tick": per_tick, "device_us": us,
+            "tick_compare": tick_cmp}
+
+
+def checkpoint_phase(torch, sim, tmpdir) -> None:
+    """(c) reset() gives a fresh Simulator's initial state; a checkpoint at
+    tick 100 resumed in a fresh Simulator runs 50 ticks bit-equal to the
+    uninterrupted run, in every field."""
+    from magics_tpu_torch.sim.simulator import Simulator
+
+    fresh = Simulator(circle_scenario())
+    sim.reset()
+    bad = differing_fields(torch, sim.state, fresh.state)
+    if bad:
+        raise AssertionError(f"(c): reset() differs from a fresh state in {bad}")
+    sim.run(max_ticks=100, chunk_ticks=SIM_CHUNK)
+    path = f"{tmpdir}/circle_100.npz"
+    t0 = time.perf_counter()
+    sim.save_checkpoint(path)
+    save_ms = 1e3 * (time.perf_counter() - t0)
+    sim.run(max_ticks=150, chunk_ticks=SIM_CHUNK)
+    t0 = time.perf_counter()
+    fresh.resume(path)
+    resume_ms = 1e3 * (time.perf_counter() - t0)
+    fresh.run(max_ticks=150, chunk_ticks=SIM_CHUNK)
+    bad = differing_fields(torch, sim.state, fresh.state)
+    if bad or int(fresh.state.tick) != 150:
+        raise AssertionError(f"(c): the resumed run differs in {bad}")
+    log(f"[sim] (c) reset() bit-equal to a fresh Simulator's state; checkpoint at tick 100 "
+        f"(save {save_ms:.1f} ms, resume {resume_ms:.1f} ms), resumed in a fresh Simulator "
+        f"and run to 150: bit-equal to the uninterrupted run in all "
+        f"{len(vars(sim.state))} fields")
+
+
+def failure_phase(torch) -> None:
+    """(d) comms failure at the Communications Failure Experiment's rate:
+    one seed twice bit-equal (and again after reset()), another seed
+    differs, the failed-antenna share of the active robots after each
+    chunk within 0.05 of the rate."""
+    from magics_tpu_torch.sim.simulator import Simulator
+
+    # robots stay after they finish, so that every chunk samples all 50
+    toml = CIRCLE_TOML.replace("max-time = 120.0", "max-time = 120.0\n"
+                               "despawn-robot-when-final-waypoint-reached = false")
+
+    def run(seed):
+        sim = Simulator(circle_scenario(failure_rate=FAILURE_RATE, toml=toml), seed=seed)
+        off = []
+
+        def sample(state, tick):
+            act = state.active
+            off.append(((~state.antenna & act).sum(), act.sum()))
+
+        sim.run(max_ticks=200, chunk_ticks=FAILURE_CHUNK, on_chunk=sample)
+        failed = sum(int(a) for a, _ in off) / max(1, sum(int(b) for _, b in off))
+        return sim, failed, sum(int(b) for _, b in off)
+
+    a, share_a, n = run(805)
+    b, share_b, _ = run(805)
+    c, _, _ = run(31)
+    bad = differing_fields(torch, a.state, b.state)
+    if bad:
+        raise AssertionError(f"(d): one seed, two runs differ in {bad}")
+    if torch.equal(a.state.pos, c.state.pos):
+        raise AssertionError("(d): another seed gave the same run")
+    again = a.state
+    a.reset()
+    a.run(max_ticks=200, chunk_ticks=FAILURE_CHUNK)
+    bad = differing_fields(torch, again, a.state)
+    if bad:
+        raise AssertionError(f"(d): the run after reset() differs in {bad}")
+    if abs(share_a - FAILURE_RATE) > 0.05 or abs(share_b - share_a) > 0:
+        raise AssertionError(f"(d): failed share {share_a} / {share_b} at rate {FAILURE_RATE}")
+    log(f"[sim] (d) comms failure {FAILURE_RATE}: seed 805 twice bit-equal in every field, "
+        f"again after reset(); seed 31 differs; failed-antenna share {share_a:.4f} over {n} "
+        f"robot samples; generator on {a.generator.device}")
+
+
+MISSION_TOML = """
+[simulation]
+hz = 10.0
+prng-seed = 7
+max-time = 60.0
+
+[gbp.iteration-schedule]
+internal = 10
+external = 10
+
+[robot]
+target-speed = 10.0
+planning-horizon = 3.0
+[robot.radius]
+min = 1.0
+max = 1.0
+[robot.communication]
+radius = 20.0
+failure-rate = 0.0
+"""
+
+
+def mission_phase(torch) -> None:
+    """(e) in-flight rrt-star missions on the builtin intersection: two
+    robots along each arm, planned during the run (deterministic polling),
+    chunks of 5 while a mission is active; every mission done in time."""
+    from magics_tpu_torch.config.formation import Formation, FormationGroup
+    from magics_tpu_torch.config.loader import Scenario
+    from magics_tpu_torch.config.schema import Config
+    from magics_tpu_torch.env import builtin
+    from magics_tpu_torch.sim.simulator import Simulator
+
+    def seg(a, b):
+        return {"line-segment": [{"x": a[0], "y": a[1]}, {"x": b[0], "y": b[1]}]}
+
+    def formation(start, goal):
+        return Formation.parse({
+            "robots": 2, "planning-strategy": "rrt-star",
+            "initial-position": {"shape": seg(*start), "placement-strategy": "equal"},
+            "waypoints": [{"shape": seg(*goal), "projection-strategy": "identity"}],
+        })
+
+    forms = [formation(((0.05, 0.48), (0.05, 0.52)), ((0.95, 0.48), (0.95, 0.52))),
+             formation(((0.48, 0.05), (0.52, 0.05)), ((0.48, 0.95), (0.52, 0.95)))]
+    scenario = Scenario(name="Intersection missions", config=Config.from_toml(MISSION_TOML),
+                        environment=builtin.intersection(), formations=FormationGroup(forms))
+    t0 = time.perf_counter()
+    sim = Simulator(scenario)
+    if sim.mission is None or not sim.mission.deterministic:
+        raise AssertionError("(e): no deterministic mission manager")
+    reset_counts()
+    result = sim.run(chunk_ticks=MISSION_CHUNK)
+    run_s = time.perf_counter() - t0
+    states = {m.state for m in sim.mission.missions.values()}
+    backend = sim._global_planner().backend
+    load_ms = sim.stats.load_ms()
+    if states != {"done"} or result["completed"] != len(sim.specs):
+        raise AssertionError(f"(e): missions {states}, {result}")
+    if sim.stats.max_graphs_alive > 2:
+        raise AssertionError(f"(e): {sim.stats.max_graphs_alive} graphs alive")
+    log(f"[sim] (e) {len(sim.specs)} rrt-star robots on the intersection: every mission done; "
+        f"{result}; planner backend {backend}; {run_s:.2f} s with the build; captures "
+        f"{[(n, round(s, 2)) for n, s in sim.stats.captures]}, at most "
+        f"{sim.stats.max_graphs_alive} graphs alive, {sim.stats.graph_chunks} graph chunks, "
+        f"{sim.stats.eager_chunks} eager; {len(load_ms)} loads, device ms each: median "
+        f"{statistics.median(load_ms) if load_ms else float('nan'):.4f}, max "
+        f"{max(load_ms) if load_ms else float('nan'):.4f}")
+
+
+def swarm_phase(torch, graph_ms: float) -> None:
+    """(f) the shell at swarm scale: a 1024-robot circle (the bench's
+    geometry and slots, K=32) for 100 ticks through Simulator.run in
+    10-tick graphs; then 3 replays of the same graph alone from the state
+    it reached, and phase 6's sender graph, beside it."""
+    from magics_tpu_torch.profiling import profile
+    from magics_tpu_torch.sim.simulator import Simulator
+
+    toml = CIRCLE_TOML.replace("max-time = 120.0", "max-time = 30.0").replace(
+        "sigma-factor-interrobot = 0.005", "sigma-factor-interrobot = 0.01")
+    scenario = circle_scenario(robots=SWARM_R, radius=800.0, tile=2000.0, toml=toml,
+                               robot_radius=2.0, name="Swarm circle")
+    sim = Simulator(scenario, n_slots=32)
+    sim.run(max_ticks=GRAPH_CHUNK, chunk_ticks=GRAPH_CHUNK)     # capture
+    graph = sim.graphs[GRAPH_CHUNK]
+    per_tick = {k: v / GRAPH_CHUNK for k, v in graph.launches.items()}
+    if per_tick != {k: float(v) for k, v in LAUNCHES_PER_TICK["sender"].items()}:
+        raise AssertionError(f"(f): capture launches per tick {per_tick}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    result = sim.run(max_ticks=GRAPH_CHUNK + SWARM_TICKS, chunk_ticks=GRAPH_CHUNK)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0) / SWARM_TICKS
+    t0 = time.perf_counter()
+    sim._harvest_log(sim.state)
+    harvest_ms = 1e3 * (time.perf_counter() - t0)
+    if result["nbr_overflow"] or not bool(torch.isfinite(sim.state.pos).all()):
+        raise AssertionError(f"(f): {result}")
+    loop_ms = ms - harvest_ms / SWARM_TICKS
+    alone = time_replays(torch, graph, 3)
+    alone_ms = 1e3 * sum(alone["host_s"]) / (3 * GRAPH_CHUNK)
+    prof = profile(graph.replay, required=False)
+    dev = ("not recorded" if prof is None
+           else f"{prof['device_us'] / GRAPH_CHUNK / 1e3:.3f} ms (torch.profiler of one replay)")
+    log(f"[sim] (f) R={SWARM_R}, K=32, 50i+10e: {SWARM_TICKS} ticks through Simulator.run in "
+        f"{GRAPH_CHUNK}-tick graphs (launches per tick {per_tick}): {ms:.3f} ms/tick with the "
+        f"end's harvest, {loop_ms:.3f} without it (a load, then replays with a diagnostics "
+        f"sample a chunk); the same graph's replays alone {alone_ms:.3f} ms/tick, device "
+        f"{dev}: the shell's overhead {loop_ms - alone_ms:+.3f} ms/tick; phase 6's sender "
+        f"graph (ticks 120-150 of the bench) {graph_ms:.3f} ms/tick; _harvest_log alone "
+        f"{harvest_ms:.1f} ms ({SWARM_R} robots x {int(sim.state.log_head)} samples); mean "
+        f"degree {float(sim.state.nbr_mask.sum()) / SWARM_R:.2f}")
+
+
+def simulator_phase(torch, graph_ms: float) -> dict:
+    """Phase 9 (a)-(f); returns (a)'s launches and (b)'s device times."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    out = circle_phase(torch)
+    with tempfile.TemporaryDirectory() as tmpdir:
+        checkpoint_phase(torch, out.pop("sim"), tmpdir)
+    failure_phase(torch)
+    mission_phase(torch)
+    swarm_phase(torch, graph_ms)
+    log(f"[sim] phase 9 in {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1115,13 +1557,14 @@ def main() -> int:
         **main_path,
         "max_abs_err": max(kernels["interrobot_slot"]["max_abs_err"], main_path["max_abs_err"]),
     }
-    graph_phase(torch, "sender", state, params, sdf, eager_ms)
+    sender_graph_ms = graph_phase(torch, "sender", state, params, sdf, eager_ms)
     del state
     _, state, params, sdf, eager_ms = slice_phase(torch, "receiver_compact")
     graph_phase(torch, "receiver_compact", state, params, sdf, eager_ms)
     del state
     grid_dense_phase(torch)
     scale = {exchange: scale_phase(torch, exchange) for exchange in ("receiver_compact", "sender")}
+    sim = simulator_phase(torch, sender_graph_ms)
 
     report = {
         "kernels": [
@@ -1144,6 +1587,9 @@ def main() -> int:
                    if k in kernels[name]},
                 "scale": {exchange: scale[exchange].get(name)
                           for exchange in scale},
+                "simulator": {"launches": sim["launches"][name],
+                              "launches_per_tick": sim["launches_per_tick"][name],
+                              "device_us_circle_k49": sim["device_us"][name]},
             }
             for name in REPLACES
         ]

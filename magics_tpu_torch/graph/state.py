@@ -23,12 +23,18 @@ import torch
 from magics_tpu_torch.core.constants import DOFS
 
 
+def _kernels_take(n_vars: int, dtype: torch.dtype) -> str | None:
+    from magics_tpu_torch.kernels.gbp_slot import kernels_take
+
+    return kernels_take(n_vars, dtype)
+
+
 @dataclasses.dataclass(frozen=True)
 class GbpParams:
     """Static per-scenario parameters (hashable). The same fields and
     defaults as magics_tpu's `GbpParams`, with `dtype` a `torch.dtype`, but
-    `use_pallas`, which defaults to None: the kernels on a CUDA state, the
-    plain passes on a CPU one."""
+    `use_pallas`, which defaults to None: the kernels on a CUDA state whose
+    dtype and V they take, the plain passes otherwise."""
 
     n_vars: int  # V
     n_slots: int  # K
@@ -79,11 +85,15 @@ class GbpParams:
     ext_exchange: str = "sender"
 
     # Run the GBP slots through the hand-written kernels (kernels/hot.py)
-    # on the hot layout: True or False as asked, None (the default) for the
-    # kernels on a CUDA state and the plain passes on a CPU one
-    # (`uses_kernels`). `pallas_interpret` and `pallas_r_tile` keep the JAX
-    # field names; the port's kernels mask the ragged robot edge themselves
-    # and read neither.
+    # on the hot layout: True or False as asked; None (the default) for the
+    # kernels on a CUDA state whose dtype and V they take, the plain passes
+    # otherwise, as the JAX package runs XLA (`uses_kernels`). True asks for
+    # the kernels' path: on a CPU state its wrappers run their plain
+    # versions, which take any dtype and V; on a CUDA state it runs the
+    # kernels, and a V they do not take raises here, a dtype at the first
+    # point that knows the device (`check_kernels`). `pallas_interpret` and
+    # `pallas_r_tile` keep the JAX field names; the port's kernels mask the
+    # ragged robot edge themselves and read neither.
     use_pallas: bool | None = None
     pallas_interpret: bool = False
     pallas_r_tile: int = 128
@@ -100,13 +110,26 @@ class GbpParams:
     def __post_init__(self) -> None:
         if self.ext_exchange not in ("sender", "receiver", "receiver_compact"):
             raise ValueError(f"unknown ext_exchange {self.ext_exchange!r}")
+        if self.use_pallas:
+            reason = _kernels_take(self.n_vars, torch.float32)
+            if reason is not None:
+                raise ValueError(f"use_pallas=True: {reason}")
 
     def uses_kernels(self, device: torch.device) -> bool:
-        """Whether the GBP slots of a state on `device` run through the
-        kernels: `use_pallas` where it was given, else on CUDA only."""
+        """Whether the GBP slots of a state on `device` run on the kernels'
+        path: `use_pallas` where it was given, else only on CUDA and only
+        where the kernels take this dtype and V."""
         if self.use_pallas is None:
-            return device.type == "cuda"
+            return device.type == "cuda" and _kernels_take(self.n_vars, self.dtype) is None
         return self.use_pallas
+
+    def check_kernels(self, device: torch.device) -> None:
+        """Raise where `use_pallas=True` asks for kernels on the card that do
+        not take this state's dtype (a CPU state runs the plain versions)."""
+        if self.use_pallas and device.type == "cuda":
+            reason = _kernels_take(self.n_vars, self.dtype)
+            if reason is not None:
+                raise ValueError(f"use_pallas=True on {device}: {reason}")
 
     @property
     def use_grid(self) -> bool:
@@ -262,6 +285,7 @@ def init_state(
     messages empty except the tracking factors' initial v2f mean. The maths is
     numpy in float64; every field ends in `torch.as_tensor(..., device=)`."""
     device = require_device(device)
+    params.check_kernels(device)
     R, V, K, W = n_robots, params.n_vars, params.n_slots, params.max_waypoints
     f = params.dtype
     if variable_timesteps.shape[0] != V:

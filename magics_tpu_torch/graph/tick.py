@@ -1132,6 +1132,7 @@ def step(
     their candidate tables at their own point of the chain, as in JAX
     (collisions see the positions update_prior_current moved)."""
     if state.pos.is_cuda:
+        params.check_kernels(state.device)
         _pin_fp32_matmul()
     state = activate_due_spawns(state)
     state = check_waypoints(state, params)

@@ -144,6 +144,55 @@ _VAR_OUT_FIELDS = ("belief_eta", "belief_lam", "belief_mean")
 
 _INT_FIELDS = frozenset({"trk_record", "trk_timeout", "path_len"})
 
+# What the slot kernels take, reckoned in plain Python from the sizes
+# csrc/gbp_slot.cu uses (kMaxSmem, kMaxTile, the rows of InternalStaging and
+# VariableStaging), so that no build is needed to ask: float32 only, V >= 3,
+# and a tile of at least one robot whose staged inputs fit in a block's
+# shared memory. The card tests hold `slot_tile` equal to the library's
+# gbp_internal_tile / gbp_variable_tile.
+KERNEL_DTYPE = torch.float32
+_MAX_SMEM = 232448
+_MAX_TILE = 8
+
+
+def _staged_rows(kind: str, V: int) -> int:
+    """Floats a robot stages in shared memory at V chain variables."""
+    V1, V2 = V - 1, V - 2
+    if kind == "internal":   # delta_t, dyn_v2f_eta, dyn_v2f_lam, obs_v2f_mu, prior, ext sums
+        return V1 + 8 * V1 + 32 * V1 + 4 * V2 + 4 * V + V + 4 * V + 16 * V
+    if kind == "variable":   # prior, ext sums, dyn / obs / trk f2v messages
+        return 4 * V + V + 4 * V + 16 * V + 8 * V1 + 32 * V1 + 2 * (4 * V2 + 16 * V2)
+    raise ValueError(f"unknown slot kernel {kind!r}")
+
+
+def slot_tile(kind: str, V: int) -> int:
+    """Robots per block of the "internal" or "variable" slot kernel at V:
+    the largest power of two up to 8 whose staged inputs fit, 0 where no
+    tile fits or V < 3."""
+    if V < 3:
+        return 0
+    tile = _MAX_TILE
+    while tile >= 1 and 4 * tile * _staged_rows(kind, V) > _MAX_SMEM:
+        tile //= 2
+    return tile
+
+
+@functools.cache
+def kernels_take(n_vars: int, dtype: torch.dtype) -> str | None:
+    """None where both slot kernels take chains of `n_vars` variables of
+    `dtype`, else the reason they do not (asked on every slot of a tick,
+    hence cached)."""
+    if dtype != KERNEL_DTYPE:
+        return f"the slot kernels take {KERNEL_DTYPE}, not {dtype}"
+    if n_vars < 3:
+        return f"the slot kernels need V >= 3, got V={n_vars}"
+    for kind in ("internal", "variable"):
+        if slot_tile(kind, n_vars) == 0:
+            return (f"the {kind} slot kernel's inputs at V={n_vars} do not fit in "
+                    "shared memory")
+    return None
+
+
 #: kernel launches per wrapper since the last `reset_launch_counts()`
 launch_counts = {"internal_slot": 0, "variable_slot": 0}
 

@@ -94,11 +94,12 @@ def build(parent: Path | None) -> dict:
 
 def alone(torch, fns: dict, order: list) -> dict:
     import chip_smoke as CS
+    from magics_tpu_torch.bench.headline import bench_scenario
     from magics_tpu_torch.graph import tick as T
     from magics_tpu_torch.kernels import layout as L
     from magics_tpu_torch.profiling import call_device_us, kernel_device_us
 
-    params, state, sdf = CS.bench_scenario(torch, "sender")
+    params, state, sdf = bench_scenario("sender")
     state = T.run_ticks(state, sdf, params, 3)
     stream = torch.cuda.current_stream().cuda_stream
     res = {}
@@ -132,13 +133,14 @@ def alone(torch, fns: dict, order: list) -> dict:
 
 def in_ticks(torch, fns: dict, order: list) -> dict:
     import chip_smoke as CS
+    from magics_tpu_torch.bench.headline import bench_scenario
     from magics_tpu_torch.graph import tick as T
     from magics_tpu_torch.kernels import layout as L
     from magics_tpu_torch.profiling import profile
 
     res = {}
     for exchange in EXCHANGES:
-        params, state, sdf = CS.bench_scenario(torch, exchange)
+        params, state, sdf = bench_scenario(exchange)
         for _ in range(2):
             state = T.run_ticks(state, sdf, params, CS.CHUNK)
         res[exchange] = {}

@@ -6,8 +6,9 @@ one process per checkout, in the order given:
 For each checkout, the bench.py workload built by that checkout's port on
 the card, with its kernels, under "sender" and then "receiver_compact",
 driven as chip_smoke.py drives its slices: the scenario from
-`chip_smoke.bench_scenario` (asked for the card and the kernels, which an
-older checkout does not default to) and the timing from
+`magics_tpu_torch.bench.headline.bench_scenario` of this checkout, built by
+each checkout's builder (asked for the card and the kernels, which an older
+checkout does not default to) and the timing from
 `chip_smoke.time_slice` (ms per tick over 3 timed chunks of 20 ticks after 2
 warm-up chunks; cudaLaunchKernel calls, device time per tick and each
 kernel's device time per launch from a 2-tick torch.profiler window). Under
@@ -65,13 +66,13 @@ def measure(tree: Path) -> dict:
         raise SystemExit("needs a CUDA device")
     prof = _load("port_profiling", HERE / "magics_tpu_torch" / "profiling.py")
     smoke = _load("chip_smoke_here", HERE / "chip_smoke.py")
+    bench = _load("port_headline", HERE / "magics_tpu_torch" / "bench" / "headline.py")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
     out = {"tree": str(tree), "card": smi.splitlines()[0], "torch": torch.__version__}
 
     for exchange in ("sender", "receiver_compact"):
-        params, state, sdf = smoke.bench_scenario(torch, exchange, device="cuda",
-                                                  use_pallas=True)
+        params, state, sdf = bench.bench_scenario(exchange, device="cuda", use_pallas=True)
         run = smoke.time_slice(torch, params, state, sdf, prof.profile)
         state, p = run["state"], run["profile"]
         res = {"ms_per_tick": 1e3 * run["seconds"] / run["ticks"]}
@@ -103,7 +104,7 @@ def measure(tree: Path) -> dict:
             restore()
             res["phase_ms_per_tick"] = {n: [c / 10, 1e3 * s / 10] for n, (c, s) in rec.items()}
         out[exchange] = res
-    out["kernels_alone"] = kernels_alone(torch, smoke, prof)
+    out["kernels_alone"] = kernels_alone(torch, smoke, bench, prof)
     return out
 
 
@@ -127,7 +128,7 @@ def longer_chain(var_in: dict, sp, V: int):
     return out, replace(sp, n_vars=V)
 
 
-def kernels_alone(torch, smoke, prof) -> dict:
+def kernels_alone(torch, smoke, bench, prof) -> dict:
     """The checkout's variable-slot kernel and row gather called alone on
     chip_smoke.py's inputs (K2's from the receiver_compact bench state after
     3 ticks, also on that chain made LONG_CHAINS variables long; the
@@ -143,8 +144,7 @@ def kernels_alone(torch, smoke, prof) -> dict:
 
     res = {}
     for exchange in ("receiver_compact", "sender"):
-        params, state, sdf = smoke.bench_scenario(torch, exchange, device="cuda",
-                                                  use_pallas=True)
+        params, state, sdf = bench.bench_scenario(exchange, device="cuda", use_pallas=True)
         state = T.run_ticks(state, sdf, params, 3)
         if exchange == "receiver_compact":
             slot_in = smoke.slot_inputs(state, params)

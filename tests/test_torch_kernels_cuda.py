@@ -683,3 +683,135 @@ def test_gather_rows_kernel_at_scale_shapes(scale_states, site):
     torch.cuda.synchronize()
     assert got.shape == (R * K, tab.shape[1])
     assert torch.equal(got, L.gather_rows_reference(tab, idx, m))
+
+
+# --------------------------------------------------------------------------
+# the kernel-path choice (ROADMAP F10), the JAX reference trajectory, and
+# the Simulator on the card
+# --------------------------------------------------------------------------
+
+def _crossing_script():
+    """scripts/torch_crossing_reference.py (it imports JAX only to write
+    the reference, which the card's tests only read)."""
+    import importlib.util
+    import pathlib
+
+    path = pathlib.Path(__file__).resolve().parents[1] / "scripts" / "torch_crossing_reference.py"
+    spec = importlib.util.spec_from_file_location("torch_crossing_reference", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def test_slot_tiles_reckoned_in_python_are_the_kernels(device):
+    """gbp_slot.slot_tile, which decides on the CPU whether the kernels take
+    a chain, gives the tile the library picks at every V."""
+    lib = G._lib()
+    for V in range(1, 900):
+        assert G.slot_tile("internal", V) == (lib.gbp_internal_tile(V) if V >= 3 else 0), V
+        assert G.slot_tile("variable", V) == (lib.gbp_variable_tile(V) if V >= 3 else 0), V
+
+
+def test_float64_crossing_runs_on_the_card_and_tracks_the_cpu(device):
+    """A float64 crossing built with the default `use_pallas` runs on the
+    card (the plain passes, as JAX runs XLA; the row gathers still launch
+    K4) and stays within 1e-6 m of the CPU port's float64 run over 10
+    ticks."""
+    from magics_tpu_torch.sim import builder
+
+    script = _crossing_script()
+    params, state, sdf = script.crossing(builder, torch.float64, device=device)
+    assert params.use_pallas is None and not params.uses_kernels(state.device)
+    cpu_params, cpu_state, cpu_sdf = script.crossing(builder, torch.float64, device="cpu")
+    G.reset_launch_counts()
+    card = T.run_ticks(state, sdf, params, 10)
+    cpu = T.run_ticks(cpu_state, cpu_sdf, cpu_params, 10)
+    assert G.launch_counts == {"internal_slot": 0, "variable_slot": 0}
+    assert card.pos.dtype == torch.float64
+    drift = float((card.pos.cpu() - cpu.pos).abs().max())
+    assert drift <= 1e-6, drift
+    assert float((card.pos - state.pos).abs().max()) > 1.0
+
+
+def test_kernel_crossing_tracks_the_committed_jax_run(device):
+    """The 4-robot crossing of tests/test_pallas_slot.py, float32, 20 ticks
+    with the kernels on (the default on the card): within 2.0 m of the JAX
+    package's run that scripts/torch_crossing_reference.py wrote to
+    tests/data/torch_crossing_jax.npz, at every tick."""
+    from magics_tpu_torch.sim import builder
+
+    script = _crossing_script()
+    want = np.load(script.DEFAULT_OUT)["pos"]
+    params, state, sdf = script.crossing(builder, torch.float32, device=device)
+    assert params.uses_kernels(state.device)
+    G.reset_launch_counts()
+    pos = [state.pos.cpu().numpy()]
+    for _ in range(script.TICKS):
+        state = T.step(state, sdf, params)
+        pos.append(state.pos.cpu().numpy())
+    assert G.launch_counts["internal_slot"] > 0 and G.launch_counts["variable_slot"] > 0
+    err = np.abs(np.stack(pos) - want).max()
+    print(f"kernel crossing vs JAX: max |dpos| {err:.3e} m over {script.TICKS} ticks")
+    assert err < 2.0, err
+    assert np.abs(pos[-1] - pos[0]).max() > 5.0
+
+
+def _small_circle(failure_rate=0.0, robots=8):
+    from magics_tpu_torch.config.formation import Formation, FormationGroup
+    from magics_tpu_torch.config.loader import Scenario
+    from magics_tpu_torch.config.schema import Config
+    from magics_tpu_torch.env import builtin
+
+    circle = {"circle": {"radius": 20.0, "center": {"x": 0.5, "y": 0.5}}}
+    toml = ("[simulation]\nhz = 10.0\nprng-seed = 3\nmax-time = 20.0\n"
+            "[gbp.iteration-schedule]\ninternal = 6\nexternal = 3\n"
+            "[robot]\ntarget-speed = 10.0\nplanning-horizon = 2.0\n"
+            f"[robot.communication]\nradius = 30.0\nfailure-rate = {failure_rate}\n")
+    formation = Formation.parse({
+        "robots": robots,
+        "initial-position": {"shape": circle, "placement-strategy": "equal"},
+        "waypoints": [{"shape": circle, "projection-strategy": "cross"}],
+    })
+    return Scenario(name="small circle", config=Config.from_toml(toml),
+                    environment=builtin.circle(), formations=FormationGroup([formation]))
+
+
+@pytest.mark.parametrize("failure_rate", [0.0, 0.5])
+def test_simulator_graph_run_bit_equal_to_eager_ticks(device, failure_rate):
+    """Simulator.run on the card replays 10-tick graphs (a partial last
+    chunk eagerly, never a third graph): after 25 ticks every field equals
+    25 eager ticks of the same initial state and generator."""
+    from magics_tpu_torch.graph.chunk import clone_state
+    from magics_tpu_torch.sim.simulator import Simulator
+
+    sim = Simulator(_small_circle(failure_rate))
+    start = clone_state(sim.state)
+    gen = torch.Generator(device=device).manual_seed(sim.seed)
+    sim.run(max_ticks=25, chunk_ticks=10)
+    assert sorted(sim.graphs) == [10] and sim.stats.graph_chunks == 2
+    assert sim.stats.eager_chunks == 1 and sim.stats.max_graphs_alive == 1
+    eager = T.run_ticks(start, sim.sdf, sim.params, 25, sim.env_dist, generator=gen)
+    _assert_states_bit_equal(sim.state, eager)
+    # the state run() hands back is the caller's: a later replay leaves it be
+    kept = clone_state(sim.state)
+    held = sim.state
+    sim.run(max_ticks=45, chunk_ticks=10)
+    _assert_states_bit_equal(held, kept)
+    assert sim.stats.loads >= 1 and all(ms >= 0.0 for ms in sim.stats.load_ms())
+
+
+def test_simulator_live_edit_recaptures(device):
+    """A live edit of the params drops the graph that captured the old ones:
+    the run after it equals eager ticks under the new params."""
+    from magics_tpu_torch.graph.chunk import clone_state
+    from magics_tpu_torch.sim.simulator import Simulator, apply_live_set
+
+    sim = Simulator(_small_circle())
+    sim.run(max_ticks=10, chunk_ticks=10)
+    first = sim.graphs[10]
+    apply_live_set(sim, "comms_radius", "5.0")
+    start = clone_state(sim.state)
+    sim.run(max_ticks=20, chunk_ticks=10)
+    assert sim.graphs[10] is not first and len(sim.stats.captures) == 2
+    eager = T.run_ticks(start, sim.sdf, sim.params, 10, sim.env_dist, generator=sim.generator)
+    _assert_states_bit_equal(sim.state, eager)
