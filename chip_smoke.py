@@ -77,6 +77,22 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    done, the planner backend and the loads of the state into the graphs;
    (f) 1024 robots for 100 ticks through `Simulator.run` against phase 6's
    sender graph: the shell's overhead per tick.
+10. The user's surfaces, over scenario directories written into a temporary
+   directory (config.toml as save_settings writes it, environment.yaml and
+   formation.yaml as JSON documents, which need no PyYAML): (a) the Circle
+   Experiment of 9(a) and the ring of 9(f); (b) `cli.main` in this process
+   with --export --snapshot --player --checkpoint: every robot completes,
+   the export bit-equal to 9(a)'s, launches a tick 50 / 10 / 10 / 20 (the
+   counts set to 0 just before and read just after), the PNG's pixels
+   render_trajectories' array, the player embedding the export, and the
+   host ms of each output; (c) the REPL in a subprocess, float64 (the plain
+   passes on the card): step 3, step 3, run 1, status, set, `load` the
+   ring, step 5, then --export: ticks exact, the export the ring's, the
+   dtype kept, no graph captured for a step size; (d) a LiveServer on port
+   0 over the ring, `drive` on a thread at 5-tick chunks, and over HTTP
+   pause, step 3, a set, resume and quit after 100 ticks: frames arrive,
+   one harvest, one capture; drive's ms/tick against `run` at 100-tick
+   chunks.
 
 The last two lines are a JSON object of per-kernel results and the JSON
 status line `{"ok": true, "device": {...}}`. Nothing here imports JAX. The
@@ -1119,6 +1135,19 @@ SWARM_TICKS = 100
 FAILURE_RATE = 0.7
 
 
+def circle_formation_doc(robots: int, radius: float) -> dict:
+    """The Circle Experiment's formation, as a formation file holds it."""
+    circle = {"circle": {"radius": radius, "center": {"x": 0.5, "y": 0.5}}}
+    return {
+        "robots": robots,
+        "initial-position": {"shape": circle, "placement-strategy": "equal"},
+        "waypoints": [{"shape": circle, "projection-strategy": "cross"}],
+        # a robot finishes where its current position reaches its goal
+        # (the default, the horizon variable's, finishes 75 m early)
+        "finished-when-intersects": {"intersects-with": "current"},
+    }
+
+
 def circle_scenario(robots: int = CIRCLE_ROBOTS, radius: float = 50.0, tile: float = 150.0,
                     failure_rate: float = 0.0, toml: str = CIRCLE_TOML, robot_radius=2.5,
                     name="Circle Experiment"):
@@ -1129,15 +1158,7 @@ def circle_scenario(robots: int = CIRCLE_ROBOTS, radius: float = 50.0, tile: flo
     from magics_tpu_torch.config.schema import Config
     from magics_tpu_torch.env.model import Environment, SdfSettings
 
-    circle = {"circle": {"radius": radius, "center": {"x": 0.5, "y": 0.5}}}
-    formation = Formation.parse({
-        "robots": robots,
-        "initial-position": {"shape": circle, "placement-strategy": "equal"},
-        "waypoints": [{"shape": circle, "projection-strategy": "cross"}],
-        # a robot finishes where its current position reaches its goal
-        # (the default, the horizon variable's, finishes 75 m early)
-        "finished-when-intersects": {"intersects-with": "current"},
-    })
+    formation = Formation.parse(circle_formation_doc(robots, radius))
     env = Environment(grid=["█"], tile_size=tile, path_width=0.1325,
                       sdf=SdfSettings(resolution=200, expansion=0.1, blur=0.01))
     text = toml.format(failure_rate=failure_rate) + CIRCLE_RADIUS.format(r=robot_radius)
@@ -1329,7 +1350,7 @@ def circle_phase(torch) -> dict:
         + ", ".join(f"{k} {v:.3f}" if v is not None else f"{k} not recorded"
                     for k, v in us.items()))
     return {"sim": sim, "launches": launches, "launches_per_tick": per_tick, "device_us": us,
-            "tick_compare": tick_cmp}
+            "tick_compare": tick_cmp, "export": export, "run_s": run_s, "ticks": result["ticks"]}
 
 
 def checkpoint_phase(torch, sim, tmpdir) -> None:
@@ -1475,6 +1496,14 @@ def mission_phase(torch) -> None:
         f"{max(load_ms) if load_ms else float('nan'):.4f}")
 
 
+def swarm_scenario():
+    """The bench ring (1024 robots on an 800 m circle) as a Simulator scenario."""
+    toml = CIRCLE_TOML.replace("max-time = 120.0", "max-time = 30.0").replace(
+        "sigma-factor-interrobot = 0.005", "sigma-factor-interrobot = 0.01")
+    return circle_scenario(robots=SWARM_R, radius=800.0, tile=2000.0, toml=toml,
+                           robot_radius=2.0, name="Swarm circle")
+
+
 def swarm_phase(torch, graph_ms: float) -> None:
     """(f) the shell at swarm scale: a 1024-robot circle (the bench's
     geometry and slots, K=32) for 100 ticks through Simulator.run in
@@ -1483,11 +1512,7 @@ def swarm_phase(torch, graph_ms: float) -> None:
     from magics_tpu_torch.profiling import profile
     from magics_tpu_torch.sim.simulator import Simulator
 
-    toml = CIRCLE_TOML.replace("max-time = 120.0", "max-time = 30.0").replace(
-        "sigma-factor-interrobot = 0.005", "sigma-factor-interrobot = 0.01")
-    scenario = circle_scenario(robots=SWARM_R, radius=800.0, tile=2000.0, toml=toml,
-                               robot_radius=2.0, name="Swarm circle")
-    sim = Simulator(scenario, n_slots=32)
+    sim = Simulator(swarm_scenario(), n_slots=32)
     sim.run(max_ticks=GRAPH_CHUNK, chunk_ticks=GRAPH_CHUNK)     # capture
     graph = sim.graphs[GRAPH_CHUNK]
     per_tick = {k: v / GRAPH_CHUNK for k, v in graph.launches.items()}
@@ -1534,6 +1559,310 @@ def simulator_phase(torch, graph_ms: float) -> dict:
     return out
 
 
+# --------------------------------------------------------------------------
+# phase 10: the user's surfaces
+# --------------------------------------------------------------------------
+
+SURFACE_CHUNK = 100     # the CLI's run chunk (Simulator.run's default)
+DRIVE_CHUNK = 5         # the live view's chunk (the CLI's --serve)
+DRIVE_TICKS = 100       # ticks the live view runs before the browser quits
+
+
+def write_scenario(root, scenario, formation: dict):
+    """A scenario directory the CLI reads without PyYAML: config.toml as
+    save_settings writes it, environment.yaml and formation.yaml as JSON
+    documents (config.dump.json_yaml). Checks that it loads back to
+    `scenario`."""
+    from pathlib import Path
+
+    from magics_tpu_torch.config.dump import json_yaml
+    from magics_tpu_torch.config.loader import load_scenario
+    from magics_tpu_torch.config.schema import config_to_toml
+
+    env = scenario.environment
+    if env.obstacles:
+        raise AssertionError("write_scenario writes obstacle-free environments only")
+    d = Path(root) / scenario.name
+    d.mkdir()
+    (d / "config.toml").write_text(config_to_toml(scenario.config))
+    (d / "environment.yaml").write_text(json_yaml({
+        "tiles": {"grid": env.grid, "settings": {
+            "tile-size": env.tile_size, "path-width": env.path_width,
+            "obstacle-height": env.obstacle_height,
+            "sdf": {"resolution": env.sdf.resolution, "expansion": env.sdf.expansion,
+                    "blur": env.sdf.blur}}},
+        "obstacles": []}))
+    (d / "formation.yaml").write_text(json_yaml({"formations": [formation]}))
+    back = load_scenario(d)
+    if (back.environment != env or back.formations != scenario.formations
+            or config_to_toml(back.config) != config_to_toml(scenario.config)):
+        raise AssertionError(f"{d} does not load back to the scenario it was written from")
+    return d
+
+
+def timed_ms(fn):
+    t0 = time.perf_counter()
+    out = fn()
+    return out, 1e3 * (time.perf_counter() - t0)
+
+
+def cli_run_phase(torch, circle_dir, tmpdir, circle: dict) -> dict:
+    """(b) `cli.main`'s run of the Circle Experiment on the card, in process,
+    with --export --snapshot --player --checkpoint: all robots complete, the
+    export bit-equal to 9(a)'s Simulator.run export (its config tree is the
+    one save_settings wrote, the same effective config), the launches, the
+    PNG, the player; then each output's host ms on its own."""
+    import contextlib
+    import io
+    import tomllib
+    from pathlib import Path
+
+    from magics_tpu_torch import cli
+    from magics_tpu_torch.config.schema import config_to_toml
+    from magics_tpu_torch.env.sdf import env_to_image
+    from magics_tpu_torch.viz.player import build_player
+    from magics_tpu_torch.viz.png import encode_png, idat_pixels
+    from magics_tpu_torch.viz.render import render_trajectories
+
+    out = {k: Path(tmpdir) / f"circle.{k}" for k in ("json", "png", "html", "npz")}
+    stdout = io.StringIO()
+    reset_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(stdout):
+        code, sim = cli.session(["-i", str(circle_dir), "--export", str(out["json"]),
+                                 "--snapshot", str(out["png"]), "--player", str(out["html"]),
+                                 "--checkpoint", str(out["npz"]), "--quiet"])
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = read_counts()
+    summary = json.loads(stdout.getvalue().strip().splitlines()[-1])
+    if code != 0 or sim.device.type != "cuda" or summary["completed"] != len(sim.specs):
+        raise AssertionError(f"(b) the CLI's run: exit {code}, {sim.device}, {summary}")
+    graph = sim.graphs[SURFACE_CHUNK]
+    per_tick = {k: v / SURFACE_CHUNK for k, v in graph.launches.items()}
+    if per_tick != {k: float(v) for k, v in LAUNCHES_PER_TICK["sender"].items()}:
+        raise AssertionError(f"(b): capture launches per tick {per_tick}")
+    if not all(launches.values()):
+        raise AssertionError(f"(b): a kernel never launched in the CLI's run: {launches}")
+    export = json.loads(out["json"].read_text())
+    want = json.loads(json.dumps(circle["export"]))
+    config = export.pop("config")
+    if config != tomllib.loads(config_to_toml(circle_scenario().config)):
+        raise AssertionError("(b): the export's config is not the scenario's")
+    want.pop("config")
+    if export != want:
+        bad = sorted(k for k in want if export.get(k) != want[k])
+        raise AssertionError(f"(b): the CLI's export differs from 9(a)'s in {bad}")
+    env = sim.scenario.environment
+    obstacle = env_to_image(env, expansion=0.0) == 0
+    export = sim.export()
+    img = render_trajectories(export, None, obstacle=obstacle, world=env.world_size)
+    if not np.array_equal(idat_pixels(out["png"].read_bytes()), img):
+        raise AssertionError("(b): the snapshot PNG does not hold render_trajectories' array")
+    if json.dumps(export, separators=(",", ":")) not in out["html"].read_text():
+        raise AssertionError("(b): the player does not embed the export")
+    if not out["npz"].stat().st_size:
+        raise AssertionError("(b): no checkpoint")
+    ms_tick = 1e3 * summary["wall_s"] / summary["ticks"]
+    run_ms_tick = 1e3 * circle["run_s"] / circle["ticks"]
+    log(f"[surfaces] (b) cli.main -i '{circle_dir.name}' --export --snapshot --player "
+        f"--checkpoint --quiet on {sim.device}: {summary}; exit {code} in {wall_s:.2f} s; "
+        f"wall_s {summary['wall_s']} = {ms_tick:.3f} ms/tick (capture included) against "
+        f"9(a)'s Simulator.run {circle['run_s']:.2f} s = {run_ms_tick:.3f} ms/tick; captures "
+        f"{[(n, round(sec, 2)) for n, sec in sim.stats.captures]}, graphs alive "
+        f"{sorted(sim.graphs)}")
+    log(f"[surfaces] (b) launches per tick (capture) {per_tick}; launches in the run "
+        f"{launches}; export bit-equal to 9(a)'s (config: save_settings' tree of the same "
+        f"config); the PNG's IDAT inflates to render_trajectories' {img.shape} array; the "
+        f"player embeds the export")
+    _, export_ms = timed_ms(sim.export)
+    _, render_ms = timed_ms(lambda: render_trajectories(export, None, obstacle=obstacle,
+                                                        world=env.world_size))
+    png, encode_ms = timed_ms(lambda: encode_png(img))
+    _, snapshot_ms = timed_ms(lambda: render_trajectories(
+        export, out["png"], obstacle=obstacle, world=env.world_size))
+    _, player_ms = timed_ms(lambda: build_player(export))
+    _, ckpt_ms = timed_ms(lambda: sim.save_checkpoint(out["npz"]))
+    log(f"[surfaces] (b) host ms: export {export_ms:.1f}, snapshot {snapshot_ms:.1f} (render "
+        f"{render_ms:.1f}, PNG encode {encode_ms:.1f} for {len(png)} bytes), player "
+        f"{player_ms:.1f}, checkpoint {ckpt_ms:.1f}")
+    return {"launches": launches, "launches_per_tick": per_tick}
+
+
+REPL_SCRIPT = (
+    "import json, sys\n"
+    "from magics_tpu_torch import cli\n"
+    "code, sim = cli.session(sys.argv[1:])\n"
+    "print(json.dumps({'code': code, 'scenario': sim.scenario.name, 'dtype': str(sim.state.pos.dtype),\n"
+    "                  'device': str(sim.device), 'captures': [n for n, _ in sim.stats.captures],\n"
+    "                  'graphs': sorted(sim.graphs), 'max_graphs_alive': sim.stats.max_graphs_alive}))\n"
+)
+
+
+def repl_phase(torch, circle_dir, ring_dir, tmpdir) -> None:
+    """(c) the REPL in a subprocess (`cli.session`, what `python -m
+    magics_tpu_torch.cli` runs, then the sim it ended on), float64 on the
+    card: ticks advance exactly, `load` switches to the ring and --export
+    writes the ring's export, the dtype and device are kept, no capture per
+    step size."""
+    import subprocess
+    from pathlib import Path
+
+    out = Path(tmpdir) / "repl.json"
+    cmds = ("step 3\nstatus\nstep 3\nrun 1\nstatus\nset comms-radius 45\n"
+            f"load {ring_dir.name}\nstatus\nstep 5\nstatus\nquit\n")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-c", REPL_SCRIPT, "-i", str(circle_dir), "--scenarios-dir",
+         str(ring_dir.parent), "--interactive", "--dtype", "f64", "--export", str(out),
+         "--quiet"],
+        input=cmds, capture_output=True, text=True, timeout=600,
+        cwd=Path(__file__).resolve().parent,
+    )
+    wall_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"(c) the REPL exited {proc.returncode}: {proc.stderr[-3000:]}")
+    statuses = [json.loads(ln) for ln in proc.stderr.splitlines() if ln.startswith("{")]
+    result = json.loads(proc.stdout.strip().splitlines()[-1])
+    ticks = [(s["ticks"], s["robots"]) for s in statuses]
+    if ticks != [(3, CIRCLE_ROBOTS), (16, CIRCLE_ROBOTS), (0, SWARM_R), (5, SWARM_R)]:
+        raise AssertionError(f"(c): statuses {statuses}")
+    if "error:" in proc.stderr or "comms_radius = 45.0" not in proc.stderr:
+        raise AssertionError(f"(c): {proc.stderr[-3000:]}")
+    export = json.loads(out.read_text())
+    if (export["scenario"] != ring_dir.name or len(export["robots"]) != SWARM_R
+            or abs(export["makespan"] - 0.5) > 1e-9):
+        raise AssertionError(f"(c): --export after `load` is {export['scenario']!r}, "
+                             f"{len(export['robots'])} robots, makespan {export['makespan']}")
+    if (result["scenario"] != ring_dir.name or result["dtype"] != "torch.float64"
+            or not result["device"].startswith("cuda") or result["captures"]
+            or result["max_graphs_alive"] > 2):
+        raise AssertionError(f"(c): the session ended on {result}")
+    log(f"[surfaces] (c) REPL subprocess ({wall_s:.1f} s, interpreter start included): "
+        f"statuses (ticks, robots) {ticks}; `set` -> comms_radius = 45.0; after `load` the "
+        f"export is '{export['scenario']}' ({len(export['robots'])} robots, makespan "
+        f"{export['makespan']} s); session ended on {result}")
+
+
+def live_phase(torch, ring_dir) -> None:
+    """(d) a LiveServer on port 0 over the ring (K=32, as 9f), `drive` on a
+    thread at 5-tick chunks; over HTTP: pause, step 3, a `set`, resume, quit
+    after DRIVE_TICKS ticks. Frames arrive, the log is harvested once, one
+    graph is captured; then `run` in 100-tick chunks from where drive
+    stopped, beside it."""
+    import threading
+    import urllib.request
+
+    from magics_tpu_torch.config.loader import load_scenario
+    from magics_tpu_torch.sim.simulator import Simulator
+    from magics_tpu_torch.viz.live import LiveServer
+
+    sim = Simulator(load_scenario(ring_dir), n_slots=32)
+    harvests = []
+    harvest = sim._harvest_log
+
+    def counted(state):
+        t0 = time.perf_counter()
+        harvest(state)
+        harvests.append(1e3 * (time.perf_counter() - t0))
+
+    sim._harvest_log = counted
+    live = LiveServer(sim, port=0)
+    live.start()
+
+    def post(cmd):
+        req = urllib.request.Request(f"http://127.0.0.1:{live.port}/cmd",
+                                     data=json.dumps(cmd).encode(), method="POST")
+        with urllib.request.urlopen(req, timeout=10) as r:
+            if not json.loads(r.read())["ok"]:
+                raise AssertionError(f"(d): {cmd} refused")
+
+    def frame_tick() -> int:
+        return round(json.loads(live.frames_since(0)[1][-1])["t"] * sim.hz)
+
+    def wait(pred, what):
+        # reads the frames drive pushed, not the state: a read of the card
+        # from this thread while drive's thread captures a graph would break
+        # the capture
+        deadline = time.monotonic() + 300
+        while not pred(frame_tick()):
+            if time.monotonic() > deadline or not thread.is_alive():
+                raise AssertionError(f"(d): no {what}; the last frame's tick {frame_tick()}")
+            time.sleep(0.01)
+
+    _, push_ms = timed_ms(lambda: live.push(sim.state))
+    summary = {}
+    thread = threading.Thread(target=lambda: summary.update(live.drive(chunk_ticks=DRIVE_CHUNK)))
+    try:
+        post({"op": "pause"})
+        thread.start()
+        post({"op": "step", "n": 3})
+        wait(lambda t: t == 3, "step 3")
+        post({"op": "set", "key": "comms-radius", "value": "45"})
+        t0, tick0 = time.perf_counter(), frame_tick()
+        post({"op": "resume"})
+        wait(lambda t: t >= DRIVE_TICKS, f"{DRIVE_TICKS} ticks")
+        post({"op": "quit"})
+        thread.join(timeout=300)
+        torch.cuda.synchronize()
+        drive_s = time.perf_counter() - t0
+    finally:
+        live.stop()
+    tick = int(sim.state.tick)
+    if thread.is_alive() or summary.get("ticks") != tick or sim.params.comms_radius != 45.0:
+        raise AssertionError(f"(d): drive ended at {summary}, tick {tick}, "
+                             f"comms_radius {sim.params.comms_radius}")
+    seq, frames = live.frames_since(0)
+    last = json.loads(frames[-1])
+    if seq < 2 + (tick - 3) // DRIVE_CHUNK or abs(last["t"] - tick * sim.dt) > 1e-9:
+        raise AssertionError(f"(d): {seq} frames, the last at t={last['t']}, tick {tick}")
+    if len(harvests) != 1 or [n for n, _ in sim.stats.captures] != [DRIVE_CHUNK]:
+        raise AssertionError(f"(d): harvests {len(harvests)}, captures {sim.stats.captures}")
+    capture_s = sim.stats.captures[0][1]
+    drive_ms = 1e3 * (drive_s - capture_s - harvests[0] / 1e3) / (tick - tick0)
+    # run in 100-tick chunks from where drive stopped: a capture, then 100
+    # ticks of replays timed
+    sim.run(max_ticks=tick + SURFACE_CHUNK, harvest=False)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sim.run(max_ticks=tick + 2 * SURFACE_CHUNK, harvest=False)
+    torch.cuda.synchronize()
+    run_ms = 1e3 * (time.perf_counter() - t0) / SURFACE_CHUNK
+    log(f"[surfaces] (d) LiveServer on port {live.port} over '{ring_dir.name}' (R={SWARM_R}, "
+        f"K={sim.params.n_slots}): pause, step 3, set comms-radius 45, resume, quit at tick "
+        f"{tick}: {seq} frames, the last at t={last['t']} s; _harvest_log called "
+        f"{len(harvests)} time ({harvests[0]:.1f} ms); captures {sim.stats.captures} "
+        f"(the 5-tick graph, after the set); drive {drive_ms:.3f} ms/tick over ticks "
+        f"{tick0}-{tick} at {DRIVE_CHUNK}-tick chunks (a replay, a push, a diagnostics sample, "
+        f"a clone and a load each; its capture, {capture_s:.2f} s, and the harvest at its end "
+        f"aside; {1e3 * drive_s / (tick - tick0):.3f} with them) against run "
+        f"{run_ms:.3f} ms/tick at {SURFACE_CHUNK}-tick chunks; push {push_ms:.3f} ms "
+        f"({SWARM_R} robots)")
+
+
+def surfaces_phase(torch, circle: dict) -> dict:
+    """Phase 10 (a)-(d); returns (b)'s launches."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmpdir:
+        from pathlib import Path
+
+        root = Path(tmpdir) / "scenarios"
+        root.mkdir()
+        circle_dir = write_scenario(root, circle_scenario(),
+                                    circle_formation_doc(CIRCLE_ROBOTS, 50.0))
+        ring_dir = write_scenario(root, swarm_scenario(), circle_formation_doc(SWARM_R, 800.0))
+        log(f"[surfaces] (a) scenario directories '{circle_dir.name}' and '{ring_dir.name}': "
+            f"config.toml as save_settings writes it, environment.yaml and formation.yaml as "
+            f"JSON documents; each loads back to its in-memory scenario")
+        out = cli_run_phase(torch, circle_dir, tmpdir, circle)
+        repl_phase(torch, circle_dir, ring_dir, tmpdir)
+        live_phase(torch, ring_dir)
+    log(f"[surfaces] phase 10 in {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1565,6 +1894,7 @@ def main() -> int:
     grid_dense_phase(torch)
     scale = {exchange: scale_phase(torch, exchange) for exchange in ("receiver_compact", "sender")}
     sim = simulator_phase(torch, sender_graph_ms)
+    surfaces = surfaces_phase(torch, sim)
 
     report = {
         "kernels": [
@@ -1590,6 +1920,8 @@ def main() -> int:
                 "simulator": {"launches": sim["launches"][name],
                               "launches_per_tick": sim["launches_per_tick"][name],
                               "device_us_circle_k49": sim["device_us"][name]},
+                "cli": {"launches": surfaces["launches"][name],
+                        "launches_per_tick": surfaces["launches_per_tick"][name]},
             }
             for name in REPLACES
         ]

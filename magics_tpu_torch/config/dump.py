@@ -5,6 +5,8 @@ from __future__ import annotations
 
 import dataclasses
 import enum
+import json
+import math
 from typing import Any
 
 
@@ -122,3 +124,24 @@ def default_environment_yaml() -> str:
         },
         sort_keys=False,
     )
+
+
+def json_yaml(doc: Any) -> str:
+    """`doc` (dicts, lists, strings, numbers, bools, None) as a JSON
+    document that PyYAML reads as the same tree: an `environment.yaml` or
+    `formation.yaml` written without PyYAML (`env.model.load_yaml`). PyYAML
+    reads YAML 1.1, where a float needs a dot and a signed exponent
+    (`1e-05` is a string there), so every float is written so: 1.0e-05."""
+    if isinstance(doc, dict):
+        return "{" + ", ".join(f"{json.dumps(str(k))}: {json_yaml(v)}"
+                               for k, v in doc.items()) + "}"
+    if isinstance(doc, (list, tuple)):
+        return "[" + ", ".join(json_yaml(v) for v in doc) + "]"
+    if isinstance(doc, float):
+        if not math.isfinite(doc):
+            raise ValueError(f"JSON has no {doc}")
+        mantissa, e, exponent = repr(doc).partition("e")
+        if "." not in mantissa:
+            mantissa += ".0"
+        return mantissa + (f"e{int(exponent):+03d}" if e else "")
+    return json.dumps(doc)

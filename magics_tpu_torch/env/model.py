@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import json
 import math
 from typing import Any
 
@@ -165,9 +166,22 @@ def tagged_loader():
 
 
 def load_yaml(text: str):
-    """Parse YAML text with `tagged_loader()`."""
-    import yaml
-
+    """Parse a scenario file: a JSON document with the stdlib's `json`, any
+    other YAML text with `tagged_loader()`. JSON is YAML, and a JSON file
+    writes a tagged node `!tag {...}` as the `{"tag": {...}}` the tagged
+    loader folds it into, so both parsers give one tree (where its floats
+    are written as PyYAML's YAML 1.1 reads them: `config.dump.json_yaml`).
+    The card's machine has no PyYAML: there a scenario is written as JSON."""
+    try:
+        return json.loads(text)
+    except json.JSONDecodeError:
+        pass
+    try:
+        import yaml
+    except ImportError as e:
+        raise ImportError(
+            "this scenario file is not a JSON document, and parsing other YAML "
+            "needs PyYAML, which is not installed") from e
     return yaml.load(text, Loader=tagged_loader())
 
 

@@ -4,7 +4,8 @@ parallel/comm.py).
 Every cross-robot access in the tick goes through a `Comm`. Only the single
 address-space backend exists so far: every robot-major tensor is already
 global, gathers are plain indexing and reductions are no-ops. The
-`torch.distributed` backend (ShardComm) is ROADMAP Queue 1 item 13.
+`torch.distributed` backend (ShardComm) is the multi-GPU item of ROADMAP
+Queue 1.
 """
 
 from __future__ import annotations

@@ -15,6 +15,9 @@ asks for the CPU). On the card `run` replays chunks of ticks captured as CUDA
 graphs (graph/chunk.py:compile_ticks), one graph per chunk size as the JAX
 package keeps one jit per size, at most two alive: `chunk_ticks`, and 5
 while in-flight missions are active. A partial last chunk runs eagerly.
+`advance(n)` (the REPL's and the live view's stepping) runs n ticks as
+replays of the session's chunk graph and an eager remainder, so a new step
+size captures no graph of its own.
 Whatever changed the state outside a graph (a mission poll that applied
 plans, `reset`, `resume`, an eager chunk, the other graph) is copied into
 the graph's static state before its next replay (`TickGraph.load`); a live
@@ -48,6 +51,9 @@ from magics_tpu_torch.sim.builder import RobotSpec, build_scenario
 #: at near-tick granularity (the reference polls every FixedUpdate,
 #: robot.rs:643-648)
 MISSION_CHUNK_TICKS = 5
+
+#: `run`'s chunk size when the caller names none
+CHUNK_TICKS = 100
 
 
 # GbpParams fields editable while a sim runs (the reference's live egui
@@ -480,9 +486,9 @@ class Simulator:
         return state
 
     def run(
-        self, max_ticks: int | None = None, progress=None, chunk_ticks: int = 100,
+        self, max_ticks: int | None = None, progress=None, chunk_ticks: int = CHUNK_TICKS,
         checkpoint_path=None, checkpoint_every_s: float | None = None,
-        on_chunk=None,
+        on_chunk=None, harvest: bool = True,
     ) -> dict:
         """Run until every robot finished, or to tick `max_ticks` (the
         scenario's max time when None; 0 runs no tick).
@@ -490,7 +496,10 @@ class Simulator:
         Positions are sampled on the device (tick.log_positions); the host
         fetches one row of diagnostics per chunk and the full log once at
         the end. `on_chunk(state, tick)` sees the state after each chunk,
-        valid until the next chunk runs.
+        valid until the next chunk runs. `harvest=False` leaves the log on
+        the device, for callers that run many short runs and harvest once
+        when they end (`_harvest_log` rebuilds the series from the whole
+        ring: its cost grows with the log, not with the ticks just run).
         """
         if max_ticks is None:
             max_ticks = int(self.max_sim_time * self.hz)
@@ -540,7 +549,8 @@ class Simulator:
         self.state = self._owned(state)
         state = self.state
         self.final_tick = tick
-        self._harvest_log(state)
+        if harvest:
+            self._harvest_log(state)
         return {
             "ticks": tick,
             "makespan": tick * self.dt,
@@ -551,6 +561,23 @@ class Simulator:
             "nbr_overflow": int(state.nbr_overflow),
             "grid_overflow": int(state.grid_overflow),
         }
+
+    def advance(self, n: int, chunk_ticks: int = CHUNK_TICKS, progress=None,
+                on_chunk=None) -> dict:
+        """Run exactly n ticks, whether or not the robots have finished,
+        as runs of at most `chunk_ticks`: whole chunks replay the session's
+        graph of that size, the remainder runs eagerly. A step size of its
+        own would cost a capture per distinct n (seconds each on the card).
+        The log is not harvested; the caller harvests when it needs the
+        series."""
+        tick = int(self.state.tick)
+        end = tick + n
+        while True:
+            summary = self.run(max_ticks=min(end, tick + chunk_ticks), chunk_ticks=chunk_ticks,
+                               progress=progress, on_chunk=on_chunk, harvest=False)
+            tick = summary["ticks"]
+            if tick >= end:
+                return summary
 
     def _harvest_log(self, state) -> None:
         """Unroll the on-device position/velocity ring buffers into per-robot

@@ -61,7 +61,8 @@ def test_the_scan_sees_forbidden_imports(tmp_path):
 
 def test_imports_load_no_jax_package():
     """Every module of the port and every module chip_smoke.py names, in a
-    fresh interpreter: nothing of JAX or of magics_tpu ends in sys.modules."""
+    fresh interpreter: nothing of JAX or of magics_tpu ends in sys.modules,
+    nor PyYAML or Pillow, which the card's machine lacks."""
     port = sorted(
         ".".join(p.relative_to(REPO).with_suffix("").parts).removesuffix(".__init__")
         for p in SOURCES if p.name != "chip_smoke.py"
@@ -71,7 +72,7 @@ def test_imports_load_no_jax_package():
         "import importlib, sys\n"
         f"for m in {port + smoke!r}: importlib.import_module(m)\n"
         f"bad = sorted(m for m in sys.modules if any(m == f or m.startswith(f + '.') "
-        f"for f in {FORBIDDEN + ('yaml',)!r}))\n"
+        f"for f in {FORBIDDEN + ('yaml', 'PIL')!r}))\n"
         "assert not bad, bad\n"
     )
     proc = subprocess.run(
@@ -83,8 +84,42 @@ def test_imports_load_no_jax_package():
                    "magics_tpu_torch.bench.headline", "magics_tpu_torch.sim.simulator",
                    "magics_tpu_torch.planner.mission", "magics_tpu_torch.io.checkpoint",
                    "magics_tpu_torch.config.dump", "magics_tpu_torch.env.sdf",
-                   "magics_tpu_torch.analysis"):
+                   "magics_tpu_torch.analysis", "magics_tpu_torch.cli",
+                   "magics_tpu_torch.entry", "magics_tpu_torch.core.pretty",
+                   "magics_tpu_torch.core.gaussian", "magics_tpu_torch.viz.live",
+                   "magics_tpu_torch.viz.render", "magics_tpu_torch.viz.player",
+                   "magics_tpu_torch.viz.graphviz", "magics_tpu_torch.viz.png"):
         assert module in port, module
+
+
+def test_cli_run_over_json_scenario_loads_no_yaml_or_pil(tmp_path):
+    """A CLI run in a fresh interpreter over a scenario directory of JSON
+    documents, writing an export, a snapshot PNG, a player and a frame
+    sequence, loads neither PyYAML nor Pillow (nor anything of JAX)."""
+    import json
+
+    sys.path.insert(0, str(REPO / "tests"))
+    from torch_scenarios import write_scenario
+
+    scenario = write_scenario(tmp_path, "Crossing Lines", max_time=0.5)
+    out = {k: str(tmp_path / f"out.{k}") for k in ("json", "png", "html")}
+    code = (
+        "import sys\n"
+        "from magics_tpu_torch import cli\n"
+        f"assert cli.main(['-i', {str(scenario)!r}, '--platform', 'cpu', '--quiet', "
+        f"'--export', {out['json']!r}, '--snapshot', {out['png']!r}, "
+        f"'--player', {out['html']!r}, '--record', {str(tmp_path / 'frames')!r}]) == 0\n"
+        f"bad = sorted(m for m in sys.modules if any(m == f or m.startswith(f + '.') "
+        f"for f in {FORBIDDEN + ('yaml', 'PIL')!r}))\n"
+        "assert not bad, bad\n"
+    )
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert json.loads(Path(out["json"]).read_text())["scenario"] == "Crossing Lines"
+    assert Path(out["png"]).read_bytes()[:8] == b"\x89PNG\r\n\x1a\n"
+    assert len(list((tmp_path / "frames").glob("frame_*.png"))) == 5   # a sample a tick
 
 
 def test_constants_equal_jax():

@@ -815,3 +815,58 @@ def test_simulator_live_edit_recaptures(device):
     assert sim.graphs[10] is not first and len(sim.stats.captures) == 2
     eager = T.run_ticks(start, sim.sdf, sim.params, 10, sim.env_dist, generator=sim.generator)
     _assert_states_bit_equal(sim.state, eager)
+
+
+def test_stepping_captures_no_graph_per_step_size(device, monkeypatch):
+    """The REPL's `step n` and the live view's browser steps run whole chunks
+    as replays of the session's graph and the rest eagerly: a REPL session
+    of step 1, 3, 5 and 150 and `run` captures one graph (100 ticks), and
+    its state equals the same ticks run eagerly; `drive` on its own thread
+    at 5-tick chunks, with steps of 3 and 7, captures only its 5-tick one."""
+    import io
+    import json
+    import sys
+    import threading
+    import time
+
+    from magics_tpu_torch import cli
+    from magics_tpu_torch.graph.chunk import clone_state
+    from magics_tpu_torch.sim.simulator import Simulator
+    from magics_tpu_torch.viz.live import LiveServer
+
+    sim = Simulator(_small_circle())
+    start = clone_state(sim.state)
+    gen = torch.Generator(device=device).manual_seed(sim.seed)
+    monkeypatch.setattr(sys, "stdin", io.StringIO("step 1\nstep 3\nstep 5\nstep 150\nrun\nquit\n"))
+    status, sim = cli.interactive_loop(sim, quiet=True)
+    assert status["ticks"] > 159 and sim.graphs.keys() == {100}
+    assert [n for n, _ in sim.stats.captures] == [100] and sim.stats.max_graphs_alive == 1
+    eager = T.run_ticks(start, sim.sdf, sim.params, status["ticks"], sim.env_dist, generator=gen)
+    _assert_states_bit_equal(sim.state, eager)
+
+    sim = Simulator(_small_circle())
+    live = LiveServer(sim, port=0)
+    live.push(sim.state)
+    live.submit({"op": "pause"})
+    live.submit({"op": "step", "n": 3})
+    thread = threading.Thread(target=live.drive, kwargs={"chunk_ticks": 5})
+    thread.start()
+
+    def frame_tick() -> int:
+        return round(json.loads(live.frames_since(0)[1][-1])["t"] * sim.hz)
+
+    def wait(tick):
+        # reads the frames drive pushed: a read of the card from this thread
+        # while drive's thread captures a graph would break the capture
+        deadline = time.monotonic() + 120
+        while frame_tick() != tick and time.monotonic() < deadline:
+            time.sleep(0.05)
+        assert frame_tick() == tick
+
+    wait(3)
+    live.submit({"op": "step", "n": 7})
+    wait(10)
+    live.submit({"op": "resume"})
+    thread.join(timeout=300)
+    assert not thread.is_alive() and int(sim.state.tick) > 10
+    assert [n for n, _ in sim.stats.captures] == [5] and sim.stats.graph_chunks > 2
