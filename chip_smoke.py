@@ -93,6 +93,19 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    pause, step 3, a set, resume and quit after 100 ticks: frames arrive,
    one harvest, one capture; drive's ms/tick against `run` at 100-tick
    chunks.
+11. The sharded path (parallel/): (a) two processes of `python -m
+   magics_tpu_torch.parallel.launch --backend gloo` sharing one card (NCCL
+   takes a card per rank), each with R_SCALE / 2 robots of the scale workload,
+   5 eager ticks under "sender" and then "receiver_compact": each rank
+   asserts its kernel launches a tick (10 / 10 / 10 / 20 and 10 / 10 / 0 /
+   10) and prints its ms/tick, its collective bytes a tick by call site
+   beside the exchange's traffic model (which must match exactly) and its
+   kernels' device us per launch (rank 0's torch.profiler); the ranks agree
+   on a checksum, and rank 0's gathered state is held to 5 one-process
+   eager ticks from the same start (discrete fields exact, float fields
+   bit-equal or within SHARD_RTOL, printed); (b) `dryrun_multichip(2)` over
+   gloo on the card; (c) (a) again over nccl, one card per rank, where the
+   machine has two cards, else the line `nccl: not run (1 card)`.
 
 The last two lines are a JSON object of per-kernel results and the JSON
 status line `{"ok": true, "device": {...}}`. Nothing here imports JAX. The
@@ -1863,6 +1876,201 @@ def surfaces_phase(torch, circle: dict) -> dict:
     return out
 
 
+# --------------------------------------------------------------------------
+# phase 11: the sharded path on the card
+# --------------------------------------------------------------------------
+
+SHARD_RANKS = 2
+SHARD_TICKS = 5
+SHARD_TIMEOUT_S = 300
+# The sharded ranks against one process, float32 on the card: every
+# robot's arithmetic is the same on both (the kernels and the plain ops work
+# row by row, the collectives only move bytes, the sums they reduce are
+# integers), so the float fields are expected bit-equal. Where one is not,
+# it is printed with its largest error, and held to RTOL of each vector's
+# or matrix's own scale (gbp_slot.scaled_error): float32 roundoff of a sum
+# whose order a kernel chose by the tensor's size, amplified by the 4x4
+# inverses of 5 ticks.
+SHARD_RTOL = RTOL
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def launch_ranks(exchange: str, backend: str, save: str) -> list:
+    """SHARD_RANKS processes of `python -m magics_tpu_torch.parallel.launch`
+    on the scale workload at R_SCALE (rank 0 saves the gathered final state
+    to `save`): each rank's `rank_report`. Raises if a rank fails, exits
+    non-zero, outlives SHARD_TIMEOUT_S or disagrees on the checksum."""
+    import os
+    import tempfile
+    from pathlib import Path
+
+    port = free_port()
+    root = Path(__file__).resolve().parent
+    procs, logs = [], []
+    for rank in range(SHARD_RANKS):
+        env = dict(os.environ, MAGICS_COORDINATOR=f"localhost:{port}",
+                   MAGICS_NUM_PROCESSES=str(SHARD_RANKS), MAGICS_PROCESS_ID=str(rank),
+                   PYTHONWARNINGS="ignore::FutureWarning")
+        logs.append(tempfile.TemporaryFile("w+"))
+        procs.append(subprocess.Popen(
+            [sys.executable, "-m", "magics_tpu_torch.parallel.launch", "--workload", "scale",
+             "--robots", str(R_SCALE), "--ticks", str(SHARD_TICKS), "--exchange", exchange,
+             "--backend", backend, "--seed", "0", "--check-sum", "--profile", "--save", save],
+            cwd=root, env=env, stdout=logs[-1], stderr=subprocess.STDOUT, text=True))
+    deadline = time.monotonic() + SHARD_TIMEOUT_S
+    try:
+        for proc in procs:
+            proc.wait(timeout=max(1.0, deadline - time.monotonic()))
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    outs = []
+    for log_file in logs:
+        log_file.seek(0)
+        outs.append(log_file.read())
+        log_file.close()
+    for rank, (proc, out) in enumerate(zip(procs, outs)):
+        if proc.returncode != 0:
+            raise AssertionError(f"sharded {exchange} over {backend}: rank {rank} exited "
+                                 f"{proc.returncode}:\n{out[-4000:]}")
+    reports, sums = [], set()
+    for out in outs:
+        for line in out.splitlines():
+            if line.startswith("rank_report "):
+                reports.append(json.loads(line[len("rank_report "):]))
+            elif line.startswith("rank=") and "abs_pos_sum=" in line:
+                sums.add(line.split("abs_pos_sum=")[1])
+            elif line.startswith(("processes=", "R=")):
+                log(f"[shard] {exchange} {backend}: {line}")
+    if len(reports) != SHARD_RANKS or len(sums) != 1:
+        raise AssertionError(f"sharded {exchange}: {len(reports)} rank reports, checksums {sums}")
+    log(f"[shard] {exchange} {backend}: every rank's abs_pos_sum {sums.pop()}")
+    return sorted(reports, key=lambda r: r["rank"])
+
+
+def sharded_compare(torch, exchange: str, saved: dict) -> dict:
+    """The gathered sharded state against SHARD_TICKS one-process eager
+    ticks on the card from the same start: discrete fields exact, float
+    fields bit-equal or within SHARD_RTOL (printed)."""
+    from magics_tpu_torch.bench.scale import scale_scenario
+    from magics_tpu_torch.graph import tick as T
+    from magics_tpu_torch.kernels.gbp_slot import scaled_error
+
+    params, state, sdf = scale_scenario(R_SCALE, exchange)
+    start_pos = state.pos.clone()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    T.run_ticks(state, sdf, params, 1, generator=gen)        # warm-up, discarded
+    gen.manual_seed(0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = T.run_ticks(state, sdf, params, SHARD_TICKS, generator=gen)
+    torch.cuda.synchronize()
+    one_ms = 1e3 * (time.perf_counter() - t0) / SHARD_TICKS
+    log(f"[shard] {exchange}: one process, R={R_SCALE}: {one_ms:.3f} ms/tick (host clock, "
+        f"{SHARD_TICKS} eager ticks after a warm-up tick)")
+    guards = check_state(torch, f"shard {exchange} one process", want, start_pos)
+    exact, floats = [], {}
+    for name, w in vars(want).items():
+        g = saved[name].to(w.device)
+        if g.shape != w.shape or g.dtype != w.dtype:
+            raise AssertionError(f"shard {exchange}: {name} {g.dtype}{tuple(g.shape)} against "
+                                 f"{w.dtype}{tuple(w.shape)}")
+        if bits_equal(torch, g, w):
+            continue
+        if w.is_floating_point():
+            floats[name] = (float((g.double() - w.double()).abs().max()),
+                            scaled_error(name, g, {name: w}, hot_layout=False))
+        else:
+            exact.append(name)
+    if exact:
+        raise AssertionError(f"shard {exchange}: discrete fields differ from one process: {exact}")
+    if floats:
+        log(f"[shard] {exchange}: float fields not bit-equal to one process (max |d|, of "
+            f"scale): " + ", ".join(f"{n} {a:.3e} {r:.3e}" for n, (a, r) in floats.items()))
+        bad = {n: r for n, (_, r) in floats.items() if r > SHARD_RTOL}
+        if bad:
+            raise AssertionError(f"shard {exchange}: fields past {SHARD_RTOL} of scale: {bad}")
+    else:
+        log(f"[shard] {exchange}: the gathered state of {SHARD_RANKS} ranks is bit-equal to "
+            f"{SHARD_TICKS} one-process eager ticks in every field (moved "
+            f"{guards['moved']:.1f} m, mean degree {guards['mean_degree']:.2f})")
+    return {"bit_equal": not floats, "differing": {n: r for n, (_, r) in floats.items()},
+            "one_process_ms": one_ms}
+
+
+def shard_exchange(torch, exchange: str, backend: str, tmpdir) -> dict:
+    """(a) for one exchange: the ranks, their reports checked, and the
+    gathered state against one process."""
+    t0 = time.perf_counter()
+    save = f"{tmpdir}/shard_{exchange}_{backend}.pt"
+    reports = launch_ranks(exchange, backend, save)
+    launch_s = time.perf_counter() - t0
+    want = SCALE_LAUNCHES_PER_TICK[exchange]
+    for rep in reports:
+        got = {k: rep["launches_per_tick"][k] for k in want}
+        if got != want:
+            raise AssertionError(f"shard {exchange} rank {rep['rank']}: launches a tick {got}, "
+                                 f"expected {want}")
+        if rep["exchange_bytes_per_tick"] != rep["model_bytes_per_tick"]:
+            raise AssertionError(f"shard {exchange} rank {rep['rank']}: the exchange gathers "
+                                 f"{rep['exchange_bytes_per_tick']} bytes a tick, the model "
+                                 f"{rep['model_bytes_per_tick']}")
+        prof = (rep.get("profile") or {}).get("kernel_device_us", {})
+        log(f"[shard] {exchange} {backend} rank {rep['rank']} ({rep['device']}, R_local "
+            f"{R_SCALE // SHARD_RANKS}): {rep['ms_per_tick']:.3f} ms/tick (host clock, "
+            f"{SHARD_TICKS} eager ticks); launches a tick {got}; collective bytes a tick "
+            f"{rep['collective_bytes_per_tick'] / 1e6:.3f} MB, of which the exchange's table "
+            f"{rep['exchange_bytes_per_tick'] / 1e6:.3f} MB = the model's "
+            f"{rep['model_bytes_per_tick'] / 1e6:.3f} MB; kernel device us per launch "
+            f"(torch.profiler of one tick on rank 0): "
+            + (", ".join(f"{k} {v:.3f}" for k, v in prof.items()) or "not recorded"))
+    top = sorted(reports[0]["bytes_per_tick"].items(), key=lambda kv: -kv[1])
+    log(f"[shard] {exchange}: rank 0's collective bytes a tick by call site: "
+        + ", ".join(f"{k} {v / 1e6:.4f} MB" for k, v in top))
+    saved = torch.load(save)
+    compare = sharded_compare(torch, exchange, saved)
+    del saved
+    log(f"[shard] {exchange} {backend}: ranks started, ran and gathered in {launch_s:.1f} s")
+    return {"reports": reports, "compare": compare}
+
+
+def shard_phase(torch) -> dict:
+    """Phase 11: (a) two gloo ranks on the card, R_SCALE robots, under
+    "sender" and "receiver_compact"; (b) dryrun_multichip(2) over gloo;
+    (c) (a) over nccl where there are two cards."""
+    import tempfile
+
+    from magics_tpu_torch.entry import dryrun_multichip
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    out = {}
+    with tempfile.TemporaryDirectory() as tmpdir:
+        for exchange in ("sender", "receiver_compact"):
+            out[exchange] = shard_exchange(torch, exchange, "gloo", tmpdir)
+        t1 = time.perf_counter()
+        dryrun_multichip(SHARD_RANKS, backend="gloo")
+        log(f"[shard] dryrun_multichip({SHARD_RANKS}, backend='gloo') on the card: sender and "
+            f"receiver_compact agree with one process (1e-5, 1e-4) in "
+            f"{time.perf_counter() - t1:.1f} s")
+        if torch.cuda.device_count() >= SHARD_RANKS:
+            for exchange in ("sender", "receiver_compact"):
+                shard_exchange(torch, exchange, "nccl", tmpdir)
+        else:
+            log(f"[shard] nccl: not run ({torch.cuda.device_count()} card)")
+    log(f"[shard] phase 11 in {time.perf_counter() - t0:.1f} s ({SHARD_TICKS} ticks a run)")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1895,6 +2103,7 @@ def main() -> int:
     scale = {exchange: scale_phase(torch, exchange) for exchange in ("receiver_compact", "sender")}
     sim = simulator_phase(torch, sender_graph_ms)
     surfaces = surfaces_phase(torch, sim)
+    shard = shard_phase(torch)
 
     report = {
         "kernels": [
@@ -1922,6 +2131,17 @@ def main() -> int:
                               "device_us_circle_k49": sim["device_us"][name]},
                 "cli": {"launches": surfaces["launches"][name],
                         "launches_per_tick": surfaces["launches_per_tick"][name]},
+                "sharded": {
+                    "ranks": SHARD_RANKS,
+                    "launches_per_tick": {
+                        exchange: [rep["launches_per_tick"][name]
+                                   for rep in shard[exchange]["reports"]]
+                        for exchange in shard},
+                    "device_us_rank0": {
+                        exchange: ((shard[exchange]["reports"][0].get("profile") or {})
+                                   .get("kernel_device_us", {}).get(name))
+                        for exchange in shard},
+                },
             }
             for name in REPLACES
         ]

@@ -14,7 +14,8 @@ ticks of `tick.step` followed by `copy_state_` of the result back into the
 static copy. Each `replay()` then advances the static state by n ticks.
 `load(state)` re-seeds it by a device copy.
 
-There is no fallback: a state off the card, or a capture that fails,
+There is no fallback: a state off the card, a comm other than `LOCAL`
+(a sharded tick's collectives are not captured), or a capture that fails,
 raises. `tick.run_ticks` stays the eager loop. The kernels' host-side
 launch counters count the launches made while capturing, once per chunk;
 replays add nothing to them (`TickGraph.launches` keeps the capture's).
@@ -29,13 +30,8 @@ import torch
 
 from magics_tpu_torch.graph import tick as T
 from magics_tpu_torch.graph.state import GbpParams, SimState
-from magics_tpu_torch.parallel.comm import LOCAL
-
-
-def _launch_counts() -> dict:
-    from magics_tpu_torch.kernels import gbp_slot, ir_slot, layout
-
-    return {**gbp_slot.launch_counts, **ir_slot.launch_counts, **layout.launch_counts}
+from magics_tpu_torch.kernels import launch_counts
+from magics_tpu_torch.parallel.comm import LOCAL, LocalComm
 
 
 def clone_state(state: SimState) -> SimState:
@@ -96,14 +92,14 @@ class TickGraph:
             # each replay draws anew from the generator's advancing state
             self.graph.register_generator_state(generator)
 
-        before = _launch_counts()
+        before = launch_counts()
         t0 = time.perf_counter()
         with torch.cuda.graph(self.graph):
             out = T.run_ticks(self.state, sdf, params, n, env_dist, comm, generator)
             copy_state_(self.state, out)
         torch.cuda.synchronize(state.device)
         self.capture_s = time.perf_counter() - t0
-        after = _launch_counts()
+        after = launch_counts()
         #: kernel launches per chunk, counted while capturing
         self.launches = {k: after[k] - before.get(k, 0) for k in after}
 
@@ -130,6 +126,12 @@ def compile_ticks(
     """Capture n ticks as one CUDA graph (see the module docstring). The
     state must lie on the card; `generator` (on the card) drives the
     comms-failure draws where `comms_failure_rate > 0`."""
+    if not isinstance(comm, LocalComm):
+        raise ValueError(
+            f"compile_ticks captures one process's ticks and takes the LOCAL comm, got "
+            f"{comm!r}: a sharded tick's collectives are not captured (gloo's cannot be); "
+            "run it eagerly with run_ticks (parallel/shard_tick.py:make_shard_step)"
+        )
     if state.device.type != "cuda":
         raise RuntimeError(
             f"compile_ticks captures a CUDA graph and needs a state on the card (cuda), "

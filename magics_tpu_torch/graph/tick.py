@@ -17,6 +17,11 @@ recomputes its incoming messages from the peers' gathered snapshot tables
 and local mirrors). `scan_schedule` changes only how XLA compiles the
 schedule, so the port runs the same slots unrolled whatever it says.
 
+Every cross-robot access goes through `comm` (parallel/comm.py): with a
+`ShardComm` the same step runs on one rank's rows of a robot-sharded state,
+its gathers and sums collectives (parallel/shard_tick.py), except the
+collision event rings, whose write order is global.
+
 A tick copies nothing from the host to the card and never waits for the
 card, so a chunk of ticks can be captured in a CUDA graph (graph/chunk.py):
 its constants are device tensors cached per device (`_timesteps`) or Python
@@ -908,6 +913,7 @@ def update_collisions(
         rr_count=rr_count,
     )
     if state.rr_events.shape[0] > 0:
+        _refuse_sharded_events(comm)
         ii = torch.arange(R, device=dev)
         updates.update(_rr_event_updates(
             state, new_pair.reshape(-1),
@@ -916,6 +922,17 @@ def update_collisions(
     if env_dist is not None:
         updates.update(_env_collision_updates(state, params, env_dist, comm))
     return replace(state, **updates)
+
+
+def _refuse_sharded_events(comm) -> None:
+    """The event rings' write order is global, so they are kept on one
+    device only (magics_tpu tick.py:1298-1301, 1436-1440; the environment
+    ring too, which the JAX package guards in `make_shard_step`)."""
+    if getattr(comm, "n_shards", 1) > 1:
+        raise NotImplementedError(
+            "collision event AABB recording is single-shard only "
+            "(set collision_log_capacity=0 for sharded runs)"
+        )
 
 
 def _ring_append(ring: torch.Tensor, count: torch.Tensor, flat: torch.Tensor,
@@ -982,6 +999,7 @@ def _env_collision_updates(
         re_count=state.re_count + new_re.to(torch.int32),
     )
     if state.re_events.shape[0] > 0:
+        _refuse_sharded_events(comm)
         f = state.pos.dtype
         r = state.radius[:, None]
         rows = torch.cat([
@@ -1034,6 +1052,7 @@ def update_collisions_grid(
         rr_partner_overflow=state.rr_partner_overflow + comm.psum(dropped).to(torch.int32),
     )
     if state.rr_events.shape[0] > 0:
+        _refuse_sharded_events(comm)
         updates.update(_rr_event_updates(
             state, once.reshape(-1), me.long().expand(R, P).reshape(-1),
             cur.clamp(0, R - 1).long().reshape(-1),

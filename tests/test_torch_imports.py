@@ -88,7 +88,11 @@ def test_imports_load_no_jax_package():
                    "magics_tpu_torch.entry", "magics_tpu_torch.core.pretty",
                    "magics_tpu_torch.core.gaussian", "magics_tpu_torch.viz.live",
                    "magics_tpu_torch.viz.render", "magics_tpu_torch.viz.player",
-                   "magics_tpu_torch.viz.graphviz", "magics_tpu_torch.viz.png"):
+                   "magics_tpu_torch.viz.graphviz", "magics_tpu_torch.viz.png",
+                   "magics_tpu_torch.parallel.comm", "magics_tpu_torch.parallel.shard_tick",
+                   "magics_tpu_torch.parallel.launch", "magics_tpu_torch.bench.multichip_cost",
+                   "magics_tpu_torch.bench.profile_tick", "magics_tpu_torch.bench.profile_slot",
+                   "magics_tpu_torch.bench.micro_ablate"):
         assert module in port, module
 
 

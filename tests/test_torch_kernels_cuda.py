@@ -870,3 +870,32 @@ def test_stepping_captures_no_graph_per_step_size(device, monkeypatch):
     thread.join(timeout=300)
     assert not thread.is_alive() and int(sim.state.tick) > 10
     assert [n for n, _ in sim.stats.captures] == [5] and sim.stats.graph_chunks > 2
+
+
+@pytest.mark.parametrize("exchange", ["sender", "receiver_compact"])
+def test_two_gloo_ranks_on_the_card_bit_equal_to_one_process(device, exchange, tmp_path):
+    """Two gloo ranks sharing the card, each with 512 of the scale
+    workload's 1024 robots, 3 eager ticks: the gathered state equals 3
+    one-process ticks bit for bit in every field (every robot's arithmetic
+    is the same; the collectives move bytes and sum integers), and each
+    rank launches K1-K4 as the schedule says."""
+    import dataclasses
+
+    import torch_shard_cases as C
+    from magics_tpu_torch.bench.scale import scale_scenario
+    from magics_tpu_torch.parallel.launch import expected_launches, spawn_ranks
+
+    out = tmp_path / "rank0.pt"
+    spawn_ranks(C.run_card_case, 2, (exchange, str(out)), backend="gloo", timeout=300)
+    got = torch.load(out)
+    params, state, sdf = scale_scenario(C.CARD_R, exchange, device)
+    want = T.run_ticks(state, sdf, params, C.CARD_TICKS)
+    bad = [f.name for f in dataclasses.fields(want)
+           if not _smoke().bits_equal(torch, got[f.name].to(device), getattr(want, f.name))]
+    assert not bad, bad
+    assert bool(want.nbr_mask.any())
+    expected = expected_launches(params, device)
+    assert expected["internal_slot"] == 10 and expected["gather_rows"] > 0
+    for rank in range(2):
+        launches = torch.load(f"{out}.launches{rank}")
+        assert {k: launches[k] for k in expected} == expected, rank
