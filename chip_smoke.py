@@ -106,6 +106,24 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    bit-equal or within SHARD_RTOL, printed); (b) `dryrun_multichip(2)` over
    gloo on the card; (c) (a) again over nccl, one card per rank, where the
    machine has two cards, else the line `nccl: not run (1 card)`.
+12. Experiments and parity (magics_tpu_torch/scripts/): (a) the parity
+   harness's cases against the numpy oracle's committed trajectories
+   (tests/data/torch_oracle_parity.npz): lanes through the kernels in
+   float32, 80 ticks, max-over-robots RMSE within 3e-3 m (ROADMAP F13),
+   completion equal, the degree held at 5; lanes in float64 (the plain
+   passes) within PARITY_F64_RMSE; circle (80 ticks) and junction (60)
+   through the kernels, completion within +-1 and each robot's completion
+   tick within the harness's window of the oracle's; each kernel run's
+   launches a tick from the counters, then K1-K4 each against its plain
+   version at the case's shapes; (b) `run_experiment.main` in this process
+   over the Circle Experiment's directory: 10 and 50 robots, seeds 0 and
+   31, max time 60 s, each row to the experiment's contract (every robot
+   completes, makespan < 60 s, no overflow) at 50 / 10 / 10 / 20 launches
+   a tick, K1-K4 each against its plain version at a 10-robot row's
+   shapes, the 50-robot seed-0 row's export bit-equal to a direct
+   `Simulator` run, capture and replay seconds, export and analysis ms per
+   row; then 10 robots at comms failure 0.0 and 0.7, the 0.7 row's
+   failed-antenna share within 0.05.
 
 The last two lines are a JSON object of per-kernel results and the JSON
 status line `{"ok": true, "device": {...}}`. Nothing here imports JAX. The
@@ -586,6 +604,35 @@ def kernel_phase(torch, device) -> dict:
     return results
 
 
+def interrobot_compare(torch, inputs: dict, sigma: float, label: str) -> tuple:
+    """The inter-robot message table against its plain version on `inputs`
+    (ir_slot.sender_inputs): finite, no entry zero in one and not the other,
+    each live message within IR_RTOL of its own scale, some message live.
+    Returns the kernel's table and the largest absolute error."""
+    from magics_tpu_torch.kernels import ir_slot as IR
+
+    R, K, V1 = inputs["seeded"].shape
+    got = IR.interrobot_slot(**inputs, sigma=sigma)
+    want = IR.interrobot_slot_reference(**inputs, sigma=sigma)
+    torch.cuda.synchronize()
+    if not bool(torch.isfinite(got).all()):
+        raise AssertionError("interrobot_slot: non-finite messages")
+    live_got, live_want = (got != 0).any(dim=-1), (want != 0).any(dim=-1)
+    flips = int((live_got != live_want).sum())
+    both = live_got & live_want
+    scale = want.abs().amax(dim=-1).clamp(min=1.0)
+    rel = float(((got - want).abs().amax(dim=-1) / scale)[both].max()) if bool(both.any()) else 0.0
+    abs_err = float((got - want).abs()[both].max()) if bool(both.any()) else 0.0
+    n = live_want.numel()
+    log(f"[kernels] interrobot_slot {label} R={R} K={K} V1={V1}: {int(live_want.sum())} live "
+        f"messages of {n} ({int((~inputs['seeded']).sum())} cavities unseeded); error over own "
+        f"scale {rel:.3e}, max |err| {abs_err:.3e}; zero-pattern flips {flips} of {n}")
+    if not bool(live_want.any()) or rel > IR_RTOL or flips:
+        raise AssertionError(f"interrobot_slot {label}: rel {rel} (rtol {IR_RTOL}), "
+                             f"flips {flips}")
+    return got, abs_err
+
+
 def interrobot_check(torch, state, params, label: str) -> dict:
     """The inter-robot message table against its plain version on a
     sender-mode bench state, and its times. With label "synthetic" (the
@@ -613,25 +660,7 @@ def interrobot_check(torch, state, params, label: str) -> dict:
         offset = torch.stack([dist * torch.cos(angle), dist * torch.sin(angle)], dim=-1)
         inputs["p_ext"] = (state.snap_mu[:, None, 1:, :2] + offset).contiguous()
     sigma = params.sigma_factor_interrobot
-
-    got = IR.interrobot_slot(**inputs, sigma=sigma)
-    want = IR.interrobot_slot_reference(**inputs, sigma=sigma)
-    torch.cuda.synchronize()
-    if not bool(torch.isfinite(got).all()):
-        raise AssertionError("interrobot_slot: non-finite messages")
-    live_got, live_want = (got != 0).any(dim=-1), (want != 0).any(dim=-1)
-    flips = int((live_got != live_want).sum())
-    both = live_got & live_want
-    scale = want.abs().amax(dim=-1).clamp(min=1.0)
-    rel = float(((got - want).abs().amax(dim=-1) / scale)[both].max()) if bool(both.any()) else 0.0
-    abs_err = float((got - want).abs()[both].max()) if bool(both.any()) else 0.0
-    n = live_want.numel()
-    log(f"[kernels] interrobot_slot {label} R={R} K={K} V1={V1}: {int(live_want.sum())} live "
-        f"messages of {n} ({int((~seeded).sum())} cavities unseeded); error over own scale "
-        f"{rel:.3e}, max |err| {abs_err:.3e}; zero-pattern flips {flips} of {n}")
-    if not bool(live_want.any()) or rel > IR_RTOL or flips:
-        raise AssertionError(f"interrobot_slot {label}: rel {rel} (rtol {IR_RTOL}), "
-                             f"flips {flips}")
+    got, abs_err = interrobot_compare(torch, inputs, sigma, label)
     # the kernel does the arithmetic only for seeded factors within the
     # safety distance (the others are empty whatever it gives), so the
     # bound counts the bytes and operations of this input's live factors. On
@@ -1253,6 +1282,21 @@ def slot_kernels_check(torch, state, params, sdf, label: str) -> None:
     want = G.variable_slot_reference(var_in, sp)
     compare(torch, f"variable_slot {label}", G.variable_slot(var_in, sp), want,
             max_flips=MAX_FLIP_SHARE * want["belief_mean"][0].numel())
+
+
+def kernels_at(torch, state, params, sdf, label: str) -> None:
+    """Every kernel of the path alone against its plain version on
+    `state`'s inputs, at its shapes: K1 and K2 (slot_kernels_check), K3
+    (interrobot_compare) and K4 (gather_bits). No whole tick is compared:
+    on the chaotic crossings one float32 tick of the kernels' path and of
+    the plain passes differs by up to 1.8e-2 of scale (the inter-robot
+    messages, the circle at tick 15, both on the CPU), past TICK_RTOL."""
+    from magics_tpu_torch.kernels import ir_slot as IR
+
+    slot_kernels_check(torch, state, params, sdf, label)
+    interrobot_compare(torch, IR.sender_inputs(state, params), params.sigma_factor_interrobot,
+                       label)
+    gather_bits(torch, state, label)
 
 
 def wide_k_check(torch) -> None:
@@ -2071,6 +2115,227 @@ def shard_phase(torch) -> dict:
     return out
 
 
+# --------------------------------------------------------------------------
+# phase 12: experiments and parity
+# --------------------------------------------------------------------------
+
+# The parity cases' slots, 10 internal + 10 external a tick under "sender"
+PARITY_LAUNCHES_PER_TICK = {"internal_slot": 10, "variable_slot": 10, "interrobot_slot": 10,
+                            "gather_rows": 20}
+# The lanes case in float64 on the card's plain passes against the oracle:
+# roundoff only (over its 80 ticks 4.6e-11 m for the port's tick and 4.8e-11
+# for the JAX tick, both on the CPU), so 1e-6 m leaves four orders for
+# another card's summation order and still fails a wrong term by orders more.
+PARITY_F64_RMSE = 1e-6
+# The tick of each parity case from which kernels_at holds every kernel
+# against its plain version at the case's shapes (lanes K=5, V=13; circle
+# K=7; junction K=5 with the tracking factor on), and of a 10-robot sweep
+# row (K=9, V=21): each mid-crossing, with inter-robot factors live
+# (interrobot_compare fails where none is)
+PARITY_CHECK_TICK = {"lanes": 20, "circle": 15, "junction": 22}
+ROW_CHECK_TICK = 30
+# The sweeps phase 12 runs through run_experiment.main over the Circle
+# Experiment's directory: 4 rows (10 and 50 robots, seeds 0 and 31), then 2
+# rows of 10 robots at comms failure 0 and 0.7
+SWEEP = ["--robots", "10:50:40", "--seeds", "0,31", "--max-time", "60"]
+FAILURE_SWEEP = ["--robots", "10:10:1", "--seeds", "0", "--failure-rates", "0.0,0.7",
+                 "--max-time", "60"]
+
+
+def parity_phase(torch) -> dict:
+    """(a) The parity harness's cases on the card against the numpy
+    oracle's committed trajectories: lanes through the kernels (float32),
+    RMSE within F13's 3e-3 m, completion equal, the degree held at 5; lanes
+    in float64 on the plain passes within PARITY_F64_RMSE; circle (80
+    ticks) and junction (60) through the kernels, completion within +-1 and
+    each robot's completion tick within the harness's window of the
+    oracle's (run_case asserts the harness's bounds). After each kernel
+    run's counts are read, every kernel is held against its plain version
+    at the case's shapes (kernels_at). Returns each kernel run's launches a
+    tick."""
+    from pathlib import Path
+
+    from magics_tpu_torch.scripts import parity_rmse as P
+
+    reference = P.load_reference(Path(__file__).resolve().parent / P.DEFAULT_REFERENCE)
+    out = {}
+    for name, dtype in (("lanes", torch.float32), ("lanes", torch.float64),
+                        ("circle", torch.float32), ("junction", torch.float32)):
+        ticks = P.case_ticks(name)
+        reset_counts()
+        t0 = time.perf_counter()
+        rec = P.run_case(name, ticks, reference=reference, dtype=dtype, device="cuda")
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        per_tick = {k: v / ticks for k, v in read_counts().items()}
+        label = f"{name} {str(dtype).removeprefix('torch.')}"
+        if dtype == torch.float32:
+            if per_tick != {k: float(v) for k, v in PARITY_LAUNCHES_PER_TICK.items()}:
+                raise AssertionError(f"(a) {label}: launches a tick {per_tick}")
+            out[name] = per_tick
+        elif per_tick["internal_slot"] or per_tick["variable_slot"]:
+            raise AssertionError(f"(a) {label}: the slot kernels ran on a float64 state")
+        elif rec["rmse_max_m"] > PARITY_F64_RMSE:
+            raise AssertionError(f"(a) {label}: RMSE {rec['rmse_max_m']:.3e} m")
+        jax64, jax32 = reference[f"{name}_jax_rmse"]
+        log(f"[experiments] (a) {label}, {ticks} ticks on the card against the oracle: RMSE "
+            f"(max over robots) {rec['rmse_max_m']:.3e} m, final divergence "
+            f"{rec['divergence_curve_max_m'][-1]:.3e} m, completed {rec['completed_dense']} / "
+            f"oracle {rec['completed_oracle']}, degree {rec['robots'] - 1} held; launches a "
+            f"tick {per_tick}; {run_s:.2f} s (the JAX tick's RMSE on the CPU, recorded in the "
+            f"reference: float64 {jax64:.3e}, float32 {jax32:.3e} m)")
+        if dtype == torch.float32:
+            make, factors, _, _ = P.CASES[name]
+            params, state, sdf = P.build_case(*make(), factors=factors, dtype=dtype,
+                                              device="cuda")
+            state = P.trajectory(params, state, sdf, PARITY_CHECK_TICK[name])["state"]
+            kernels_at(torch, state, params, sdf,
+                       f"(a) {name} at tick {PARITY_CHECK_TICK[name]}")
+    return out
+
+
+def row_contract(done) -> dict:
+    """A harness row against the experiment's contract (every robot
+    completes, makespan < 60 s, no overflow) and its chunk graph's launches
+    a tick against the sender workload's 50 / 10 / 10 / 20. Returns the
+    launches a tick."""
+    row, sim = done.row, done.sim
+    if (row["completed"] != row["robots"] or row["makespan"] >= 60.0
+            or row["nbr_overflow"] != 0 or row["grid_overflow"] != 0):
+        raise AssertionError(f"(b) a row broke the experiment's contract: {row}")
+    if sim.state.device.type != "cuda" or len(sim.graphs) != 1:
+        raise AssertionError(f"(b) the row ran on {sim.state.device}, graphs {sorted(sim.graphs)}")
+    (chunk, graph), = sim.graphs.items()
+    per_tick = {k: v / chunk for k, v in graph.launches.items()}
+    if per_tick != {k: float(v) for k, v in LAUNCHES_PER_TICK["sender"].items()}:
+        raise AssertionError(f"(b) row {row['robots']} robots, seed {row['seed']}: launches a "
+                             f"tick {per_tick}")
+    t = done.times
+    log(f"[experiments] (b) row: {row['robots']} robots, seed {row['seed']}"
+        + (f", failure rate {row['failure_rate']}" if "failure_rate" in row else "")
+        + f": {row['completed']}/{row['robots']} done at {row['makespan']:.1f} s, "
+        f"{row['ticks']} ticks in {chunk}-tick graphs; capture {t['capture_s']:.2f} s, replay "
+        f"{t['replay_s']:.2f} s (the rest of run), build {t['build_s']:.2f} s, export "
+        f"{t['export_ms']:.1f} ms, analysis {t['analysis_ms']:.1f} ms; launches a tick "
+        f"{per_tick}")
+    return per_tick
+
+
+def experiment_phase(torch, tmpdir) -> dict:
+    """(b) run_experiment.main in this process over the Circle Experiment's
+    directory (phase 10's writer): SWEEP's 4 rows, each to the contract at
+    50 / 10 / 10 / 20 launches a tick, every kernel held against its plain
+    version at a 10-robot row's shapes (kernels_at), the 50-robot seed-0
+    row's export bit-equal to a direct Simulator run of the same scenario,
+    seed and max time; then FAILURE_SWEEP's 2 rows, the failed-antenna
+    share of the active robots after each tick (9(d)'s measure, with 1-tick
+    chunks) of the 0.7 row within 0.05 of the rate."""
+    import unittest.mock
+    from pathlib import Path
+
+    from magics_tpu_torch.config.loader import load_scenario
+    from magics_tpu_torch.scripts import run_experiment as X
+    from magics_tpu_torch.sim import simulator as S
+
+    root = Path(tmpdir) / "scenarios"
+    root.mkdir()
+    circle_dir = write_scenario(root, circle_scenario(), circle_formation_doc(CIRCLE_ROBOTS, 50.0))
+    rows = []
+
+    def on_row(done):
+        rows.append((done, row_contract(done)))
+
+    out_dir = Path(tmpdir) / "sweep"
+    reset_counts()
+    t0 = time.perf_counter()
+    code = X.main([circle_dir.name, "--scenarios-dir", str(root), "--out", str(out_dir), *SWEEP],
+                  on_row=on_row)
+    torch.cuda.synchronize()
+    sweep_s = time.perf_counter() - t0
+    launches = read_counts()
+    summary = json.loads((out_dir / "summary.json").read_text())
+    if code != 0 or len(rows) != 4 or [r["robots"] for r in summary] != [10, 10, 50, 50]:
+        raise AssertionError(f"(b) the sweep: exit {code}, rows {summary}")
+    if not all(launches.values()):
+        raise AssertionError(f"(b) a kernel never launched in the sweep: {launches}")
+    capture_s = sum(done.times["capture_s"] for done, _ in rows)
+    log(f"[experiments] (b) run_experiment.main '{circle_dir.name}' {' '.join(SWEEP)}: "
+        f"{len(rows)} rows in {sweep_s:.1f} s, capture {capture_s:.1f} s of it "
+        f"({100 * capture_s / sweep_s:.1f}%); launches in the sweep {launches}")
+
+    # every kernel at a 10-robot row's shapes, from its own scenario re-run
+    # eagerly to mid-crossing, after the sweep's counts were read
+    done = rows[0][0]
+    done.sim.reset()
+    done.sim.run(max_ticks=ROW_CHECK_TICK, chunk_ticks=SIM_CHUNK)    # a partial chunk: eager
+    kernels_at(torch, done.sim.state, done.sim.params, done.sim.sdf,
+               f"(b) {done.row['robots']}-robot seed-{done.row['seed']} row at tick "
+               f"{ROW_CHECK_TICK}")
+
+    cell = {key: None for key, _ in X.AXES} | {"robots": 50, "seed": 0}
+    t0 = time.perf_counter()
+    direct = S.Simulator(X.scenario_for(load_scenario(circle_dir), cell), seed=0,
+                         max_sim_time=60.0, viz_log=False)
+    direct.run()
+    want = json.dumps(direct.export(), sort_keys=True)
+    direct_s = time.perf_counter() - t0
+    got = json.dumps(json.loads((out_dir / f"export_{X.tag(circle_dir.name, cell)}.json")
+                                .read_text()), sort_keys=True)
+    if got != want:
+        raise AssertionError("(b) the 50-robot row's export differs from a direct Simulator run")
+    log(f"[experiments] (b) the 50-robot seed-0 row's export is bit-equal to a direct "
+        f"Simulator(sc, seed=0, max_sim_time=60.0).run() and export() ({direct_s:.1f} s)")
+    del direct
+
+    shares = []
+
+    class Sampled(S.Simulator):
+        """The harness's Simulator, run in 1-tick chunks, counting the
+        active robots' failed antennas after each tick on the card."""
+
+        def run(self, **kw):
+            off = torch.zeros((), dtype=torch.int64, device=self.device)
+            act = torch.zeros_like(off)
+
+            def sample(state, _tick):
+                off.add_((~state.antenna & state.active).sum())
+                act.add_(state.active.sum())
+
+            result = super().run(chunk_ticks=1, on_chunk=sample, **kw)
+            shares.append((int(off), int(act)))
+            return result
+
+    failure_rows = []
+    with unittest.mock.patch.object(S, "Simulator", Sampled):
+        X.main([circle_dir.name, "--scenarios-dir", str(root), "--out",
+                str(Path(tmpdir) / "failure"), *FAILURE_SWEEP],
+               on_row=lambda done: failure_rows.append((done, row_contract(done))))
+    (_, (off0, _)), (_, (off7, act7)) = zip(failure_rows, shares, strict=True)
+    share = off7 / max(act7, 1)
+    if off0 != 0 or abs(share - FAILURE_RATE) > 0.05:
+        raise AssertionError(f"(b) failed shares {off0} and {share} at rates 0.0 and "
+                             f"{FAILURE_RATE}")
+    log(f"[experiments] (b) run_experiment.main {' '.join(FAILURE_SWEEP)}: failed-antenna share "
+        f"of the active robots {share:.4f} over {act7} robot-ticks at rate {FAILURE_RATE}, 0 at "
+        f"rate 0.0")
+    per_row = [per_tick for _, per_tick in rows + failure_rows]
+    return {"launches": launches, "launches_per_tick": per_row,
+            "rows": [done.times | {"robots": done.row["robots"], "seed": done.row["seed"]}
+                     for done, _ in rows]}
+
+
+def experiments_phase(torch) -> dict:
+    """Phase 12 (a) and (b)."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    parity = parity_phase(torch)
+    with tempfile.TemporaryDirectory() as tmpdir:
+        out = experiment_phase(torch, tmpdir)
+    log(f"[experiments] phase 12 in {time.perf_counter() - t0:.1f} s")
+    return {"parity": parity, **out}
+
+
 def main() -> int:
     import torch
 
@@ -2104,6 +2369,7 @@ def main() -> int:
     sim = simulator_phase(torch, sender_graph_ms)
     surfaces = surfaces_phase(torch, sim)
     shard = shard_phase(torch)
+    experiments = experiments_phase(torch)
 
     report = {
         "kernels": [
@@ -2131,6 +2397,13 @@ def main() -> int:
                               "device_us_circle_k49": sim["device_us"][name]},
                 "cli": {"launches": surfaces["launches"][name],
                         "launches_per_tick": surfaces["launches_per_tick"][name]},
+                "experiment": {
+                    "launches": experiments["launches"][name],
+                    "launches_per_tick_by_row": [row[name] for row in
+                                                 experiments["launches_per_tick"]],
+                    "parity_launches_per_tick": {case: per_tick[name] for case, per_tick
+                                                 in experiments["parity"].items()},
+                },
                 "sharded": {
                     "ranks": SHARD_RANKS,
                     "launches_per_tick": {

@@ -50,6 +50,16 @@ def test_no_jax_or_jax_package_import(path):
     assert not bad, f"{path.relative_to(REPO)} imports {bad}"
 
 
+@pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(REPO)))
+def test_no_import_of_the_tests_or_the_jax_scripts(path):
+    """The port's harnesses (magics_tpu_torch/scripts/) keep their own
+    copies of what they take from scripts/ and tests/, which import JAX."""
+    local = ("tests", "scripts")
+    bad = sorted(n for n in _imported(path)
+                 if any(n == f or n.startswith(f + ".") for f in local))
+    assert not bad, f"{path.relative_to(REPO)} imports {bad}"
+
+
 def test_the_scan_sees_forbidden_imports(tmp_path):
     src = tmp_path / "m.py"
     src.write_text("import os\ndef f():\n    from magics_tpu.core.schedule import ScheduleKind\n"
@@ -92,7 +102,9 @@ def test_imports_load_no_jax_package():
                    "magics_tpu_torch.parallel.comm", "magics_tpu_torch.parallel.shard_tick",
                    "magics_tpu_torch.parallel.launch", "magics_tpu_torch.bench.multichip_cost",
                    "magics_tpu_torch.bench.profile_tick", "magics_tpu_torch.bench.profile_slot",
-                   "magics_tpu_torch.bench.micro_ablate"):
+                   "magics_tpu_torch.bench.micro_ablate",
+                   "magics_tpu_torch.scripts.run_experiment",
+                   "magics_tpu_torch.scripts.parity_rmse"):
         assert module in port, module
 
 
@@ -195,6 +207,22 @@ def test_entry_points_default_to_the_card():
     assert sim.state.device.type == "cpu" and sim.env_dist.device.type == "cpu"
     assert sim.generator.device.type == "cpu"
     assert sim.params.uses_kernels(torch.device("cuda"))
+
+
+def test_harnesses_default_to_the_card(tmp_path):
+    """The experiment sweep and the parity harness run on the card unless
+    `--platform cpu`: without one they raise before they read or write a
+    file."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; the default runs there")
+    from magics_tpu_torch.scripts import parity_rmse, run_experiment
+
+    out = tmp_path / "out"
+    with pytest.raises(RuntimeError, match="cuda"):
+        run_experiment.main(["Missing", "--scenarios-dir", str(tmp_path), "--out", str(out)])
+    with pytest.raises(RuntimeError, match="cuda"):
+        parity_rmse.main(["--reference", str(tmp_path / "missing.npz")])
+    assert not out.exists()
 
 
 def test_checkpoint_load_defaults_to_the_card(tmp_path):

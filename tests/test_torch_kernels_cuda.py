@@ -756,6 +756,31 @@ def test_kernel_crossing_tracks_the_committed_jax_run(device):
     assert np.abs(pos[-1] - pos[0]).max() > 5.0
 
 
+def test_kernel_lanes_track_the_committed_oracle(device):
+    """The parity harness's lanes case (magics_tpu_torch/scripts/
+    parity_rmse.py: 6 robots, K=5, V=13, 10 + 10 slots), float32, 80 ticks
+    through the kernels (the default on the card): max-over-robots RMSE
+    within 3e-3 m of the numpy oracle's committed trajectory (ROADMAP F13),
+    completion equal, every kernel launched on every tick."""
+    import pathlib
+
+    from magics_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from magics_tpu_torch.scripts import parity_rmse as P
+
+    ticks = P.case_ticks("lanes")
+    reference = P.load_reference(pathlib.Path(__file__).resolve().parent / "data"
+                                 / "torch_oracle_parity.npz")
+    reset_launch_counts()
+    out = P.run_case("lanes", ticks, reference=reference, dtype=torch.float32, device=device)
+    per_tick = {k: v / ticks for k, v in launch_counts().items()}
+    print(f"kernel lanes vs the oracle: RMSE {out['rmse_max_m']:.3e} m; launches a tick "
+          f"{per_tick}")
+    assert per_tick == {"internal_slot": 10.0, "variable_slot": 10.0, "interrobot_slot": 10.0,
+                        "gather_rows": 20.0}
+    assert out["rmse_max_m"] < 3e-3
+    assert out["completed_dense"] == out["completed_oracle"]
+
+
 def _small_circle(failure_rate=0.0, robots=8):
     from magics_tpu_torch.config.formation import Formation, FormationGroup
     from magics_tpu_torch.config.loader import Scenario
