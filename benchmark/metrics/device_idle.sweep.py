@@ -1,0 +1,8 @@
+"""Share of one traced sweep row in which no kernel ran on the device, in
+%: 1 less the union of the kernels' intervals over the traced time."""
+
+from benchmark.harness import idle_share
+
+
+def read(out):
+    return idle_share(out.traces.get("window"))
