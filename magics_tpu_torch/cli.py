@@ -175,13 +175,16 @@ def interactive_loop(sim, *, quiet: bool = False, live=None,
 @contextlib.contextmanager
 def _profiled(directory, device: torch.device):
     """torch.profiler over the run (the card's kernels too, on the card),
-    its trace written to DIR/trace.json (chrome://tracing, Perfetto)."""
+    its trace written to DIR/trace.json (chrome://tracing, Perfetto), with
+    the program's spans as ranges beside the kernels."""
     from torch.profiler import ProfilerActivity, profile
+
+    from magics_tpu_torch.profiling import annotate
 
     activities = [ProfilerActivity.CPU]
     if device.type == "cuda":
         activities.append(ProfilerActivity.CUDA)
-    with profile(activities=activities) as prof:
+    with profile(activities=activities) as prof, annotate():
         yield
     out = Path(directory)
     out.mkdir(parents=True, exist_ok=True)

@@ -12,7 +12,10 @@ warm up (kernel plans, the slot kernels' shared-memory attribute, cached
 constants) without touching that copy or the generator, and captures n
 ticks of `tick.step` followed by `copy_state_` of the result back into the
 static copy. Each `replay()` then advances the static state by n ticks.
-`load(state)` re-seeds it by a device copy.
+`load(state)` re-seeds it by a device copy. The warm-up and the capture
+are the program's spans `graph.warmup` and `graph.capture`, and a graph's
+destruction `graph.release`; the capture records the ticks' stage map
+(`TickGraph.stages`, profiling.py).
 
 There is no fallback: a state off the card, a comm other than `LOCAL`
 (a sharded tick's collectives are not captured), or a capture that fails,
@@ -24,10 +27,10 @@ replays add nothing to them (`TickGraph.launches` keeps the capture's).
 from __future__ import annotations
 
 import dataclasses
-import time
 
 import torch
 
+from magics_tpu_torch import profiling
 from magics_tpu_torch.graph import tick as T
 from magics_tpu_torch.graph.state import GbpParams, SimState
 from magics_tpu_torch.kernels import launch_counts
@@ -80,28 +83,41 @@ class TickGraph:
         # warm-up: one eager chunk on a side stream, from a copy of the
         # state, leaving the generator where it was
         g_state = generator.get_state() if generator is not None else None
-        side = torch.cuda.Stream(device=state.device)
-        side.wait_stream(torch.cuda.current_stream(state.device))
-        with torch.cuda.stream(side):
-            warm = T.run_ticks(clone_state(self.state), sdf, params, n, env_dist, comm, generator)
-        torch.cuda.current_stream(state.device).wait_stream(side)
-        torch.cuda.synchronize(state.device)
-        del warm
+        with profiling.span("graph.warmup"):
+            side = torch.cuda.Stream(device=state.device)
+            side.wait_stream(torch.cuda.current_stream(state.device))
+            with torch.cuda.stream(side):
+                warm = T.run_ticks(clone_state(self.state), sdf, params, n, env_dist, comm,
+                                   generator)
+            torch.cuda.current_stream(state.device).wait_stream(side)
+            torch.cuda.synchronize(state.device)
+            del warm
         if generator is not None:
             generator.set_state(g_state)
             # each replay draws anew from the generator's advancing state
             self.graph.register_generator_state(generator)
 
         before = launch_counts()
-        t0 = time.perf_counter()
-        with torch.cuda.graph(self.graph):
-            out = T.run_ticks(self.state, sdf, params, n, env_dist, comm, generator)
-            copy_state_(self.state, out)
-        torch.cuda.synchronize(state.device)
-        self.capture_s = time.perf_counter() - t0
+        recorder = profiling.capture_recorder(state.device)
+        with profiling.span("graph.capture"):
+            with torch.cuda.graph(self.graph), recorder:
+                out = T.run_ticks(self.state, sdf, params, n, env_dist, comm, generator)
+                profiling.stage("chunk.copy")
+                copy_state_(self.state, out)
+            torch.cuda.synchronize(state.device)
         after = launch_counts()
         #: kernel launches per chunk, counted while capturing
         self.launches = {k: after[k] - before.get(k, 0) for k in after}
+        #: where each stage of the captured ticks begins (profiling.StageMap)
+        self.stages = recorder.map
+
+    def __del__(self) -> None:
+        # destroying a graph of ~10^5 nodes takes the host a fraction of a
+        # second, wherever the last reference to it goes
+        graph = self.__dict__.get("graph")
+        if graph is not None:
+            with profiling.span("graph.release"):
+                graph.reset()
 
     def replay(self) -> SimState:
         """Advance the static state by n ticks (queued on the current

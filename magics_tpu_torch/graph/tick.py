@@ -25,7 +25,9 @@ collision event rings, whose write order is global.
 A tick copies nothing from the host to the card and never waits for the
 card, so a chunk of ticks can be captured in a CUDA graph (graph/chunk.py):
 its constants are device tensors cached per device (`_timesteps`) or Python
-scalars handed to the ops.
+scalars handed to the ops. `profiling.stage` marks where each system of
+the chain begins, for the captured graph's stage map; elsewhere a mark
+does nothing.
 """
 
 from __future__ import annotations
@@ -35,6 +37,7 @@ from dataclasses import replace
 
 import torch
 
+from magics_tpu_torch import profiling
 from magics_tpu_torch.core.constants import TRACKING_SKIP_FIRST_N_FACTOR_ITERS
 from magics_tpu_torch.core.linalg import inv4_rowscaled
 from magics_tpu_torch.graph import factors as F
@@ -822,9 +825,11 @@ def iterate_gbp(state: SimState, sdf: torch.Tensor, params: GbpParams, comm=LOCA
 
     for internal_flag, external_flag in params.schedule:
         if internal_flag:
+            profiling.stage("gbp.internal")
             state = internal_factor_pass(state, sdf, params)
             state = internal_variable_pass(state, params, comm)
         if external_flag:
+            profiling.stage("gbp.external")
             state = external_factor_pass(state, params, comm)
             state = external_variable_pass(state, params, comm)
     return state
@@ -1153,23 +1158,35 @@ def step(
     if state.pos.is_cuda:
         params.check_kernels(state.device)
         _pin_fp32_matmul()
+    stage = profiling.stage
+    stage("spawns")
     state = activate_due_spawns(state)
+    stage("waypoints")
     state = check_waypoints(state, params)
+    stage("connectivity")
     if params.use_grid:
         state = update_connectivity_grid(state, params, comm)
     else:
         state = update_connectivity(state, params, comm)
+    stage("failed_comms")
     state = update_failed_comms(state, params, comm, generator)
+    stage("prior_horizon")
     state = update_prior_horizon(state, params, comm)
+    stage("prior_current")
     state = update_prior_current(state, params)
     state = iterate_gbp(state, sdf, params, comm)
+    stage("message_counts")
     state = update_message_counts(state, params, comm)
+    stage("collisions")
     if params.use_grid:
         state = update_collisions_grid(state, params, env_dist, comm)
     else:
         state = update_collisions(state, params, env_dist, comm)
+    stage("goal_areas")
     state = update_goal_areas(state, params)
+    stage("log")
     state = log_positions(state, params)
+    stage("handoff")
     return replace(state, tick=state.tick + 1)
 
 

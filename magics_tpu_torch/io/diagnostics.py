@@ -37,8 +37,29 @@ class DiagnosticsRecorder:
     re_collisions: list = dataclasses.field(default_factory=list)
     nbr_overflow: list = dataclasses.field(default_factory=list)
 
-    def sample(self, state, params, t: float) -> None:
-        """Fetch the diagnostic scalars for one sample row.
+    def queue_row(self, state) -> torch.Tensor:
+        """The diagnostic scalars of `state` as one tensor on its device,
+        for `sample` to fetch (on the card queued, not waited for)."""
+        V = self.n_vars
+        msg = state.msg_counts.sum(dim=0)
+        return torch.stack(
+            [
+                state.active.sum(),
+                state.completed.sum(),
+                state.nbr_mask.sum() * (V - 1),
+                msg[0],
+                msg[1],
+                msg[2],
+                msg[3],
+                state.rr_collisions,
+                state.re_collisions,
+                state.nbr_overflow,
+            ]
+        )
+
+    def sample(self, state, params, t: float, row: torch.Tensor | None = None) -> None:
+        """Fetch the diagnostic scalars for one sample row (`row`, where the
+        caller queued it with `queue_row`, else queued here).
 
         Factor counting mirrors diagnostic/robot.rs: per live robot V-1
         dynamic + (V-2) obstacle + (V-2) tracking factors, plus one
@@ -46,26 +67,8 @@ class DiagnosticsRecorder:
         factor, robot.rs:1441-1586).
         """
         V = self.n_vars
-        msg = state.msg_counts.sum(dim=0)
         # one fused fetch per sample
-        row = (
-            torch.stack(
-                [
-                    state.active.sum(),
-                    state.completed.sum(),
-                    state.nbr_mask.sum() * (V - 1),
-                    msg[0],
-                    msg[1],
-                    msg[2],
-                    msg[3],
-                    state.rr_collisions,
-                    state.re_collisions,
-                    state.nbr_overflow,
-                ]
-            )
-            .cpu()
-            .numpy()
-        )
+        row = (self.queue_row(state) if row is None else row).cpu().numpy()
         n_active_i = int(row[0])
         per_robot_internal = 0
         if params.dynamic_enabled:

@@ -10,6 +10,9 @@ external slot runs the external factor pass on the normal layout (under
 `variable_slot` launch and the response delivery (under "sender" one row
 gather); the state is transposed back at the end.
 The kernels mask the ragged robot edge themselves, so nothing is padded.
+In a captured graph's stage map (profiling.py) the layout changes are
+`gbp.layout`, each run of internal slots `gbp.internal` and each external
+slot `gbp.external`.
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ from dataclasses import replace
 
 import torch
 
+from magics_tpu_torch import profiling
 from magics_tpu_torch.core.constants import TRACKING_SKIP_FIRST_N_FACTOR_ITERS
 from magics_tpu_torch.graph import factors as F
 from magics_tpu_torch.graph import tick as T
@@ -122,6 +126,7 @@ def iterate_gbp_hot(
     sp = slot_params(params)
     world = (params.world_width, params.world_height)
 
+    profiling.stage("gbp.layout")
     h = to_hot(state, params)
     st = state
     ic = state.iter_count_factor
@@ -131,6 +136,7 @@ def iterate_gbp_hot(
 
     for i_flag, e_flag in params.schedule:
         if i_flag:
+            profiling.stage("gbp.internal")
             tgate_r = gate_r & (ic >= TRACKING_SKIP_FIRST_N_FACTOR_ITERS)
             outs = internal_slot(
                 {
@@ -152,7 +158,9 @@ def iterate_gbp_hot(
                 st = replace(st, ir_int_seeded=T.seed_cavities(st, params, gate_r, comm))
         if e_flag and params.interrobot_enabled:
             # external factor pass on the normal layout (tick.external_factor_pass)
+            profiling.stage("gbp.layout")
             st = replace(_snap_to_state(st, h), iter_count_factor=ic)
+            profiling.stage("gbp.external")
             st = T.external_factor_pass(st, params, comm)
             ic = st.iter_count_factor
 
@@ -177,4 +185,5 @@ def iterate_gbp_hot(
                 ir_v2f_ext_pos=T.deliver_responses(st, params, ext_gate_r, own_pos, comm),
             )
 
+    profiling.stage("gbp.layout")
     return merge_state(st, h, ic)

@@ -1,16 +1,40 @@
-"""Device-side measurements of the port on an NVIDIA GPU, by torch.profiler,
-and host timers around the port's functions.
+"""The port's own measurements: its host spans, the stage maps of its
+captured CUDA graphs, and device-side measurements on an NVIDIA GPU by
+torch.profiler with host timers around the port's functions.
 
-Used by chip_smoke.py and scripts/torch_tick_compare.py. It imports nothing
-but torch, so the comparison script can load this file by path beside
-another checkout's package. Every function here needs a CUDA device: the
-profiler then records the kernels' own device time, which CUDA events
-around a wrapper call (host work included) do not give.
+**Spans.** `with span("sim.chunk"):` (or `@span("sim.run")` on a function)
+adds the block's seconds and one call to that name's totals (`span_totals`),
+always, at the cost of two clock reads and a dict update. While a
+torch.profiler session is active it also keeps the block's interval on
+`time.time_ns()`, the clock of the profiler's device timestamps;
+`intervals(start_ns, end_ns)` reads them. A span emits no profiler range
+(`record_function`) unless `annotate()` is on, as the CLI's `--profile`
+turns it on: a CUDA-only trace would count such a range as a device
+operation.
+
+**Stage maps.** While `compile_ticks` captures a chunk, `stage(name)` marks
+where each stage of the tick begins (graph/tick.py:step, kernels/hot.py);
+the mark reads the capture's current node and adds nothing to the graph.
+The capture's `StageMap` gives each stage's first device operation, in the
+order a replay runs them; `stage_device_ms` splits a profiled replay's
+device time by it. `newest_stage_map()` is the map of the newest capture.
+
+The profiler helpers are used by chip_smoke.py and
+scripts/torch_tick_compare.py. This file imports nothing but torch at its
+top, so the comparison script can load it by path beside another
+checkout's package. Each profiler helper needs a CUDA device: the profiler
+then records the kernels' own device time, which CUDA events around a
+wrapper call (host work included) do not give.
 """
 
 from __future__ import annotations
 
+import bisect
+import contextlib
+import ctypes
+import dataclasses
 import time
+import warnings
 
 import torch
 
@@ -141,3 +165,271 @@ def host_timers(targets, sync: bool):
             setattr(module, name, fn)
 
     return records, restore
+
+
+# --------------------------------------------------------------------------
+# the program's spans
+# --------------------------------------------------------------------------
+
+#: {name: [calls, nanoseconds]} of every span since `reset_spans()`
+span_totals: dict[str, list] = {}
+#: (name, start ns, end ns) of the spans that ended while a profiler ran
+_intervals: list[tuple[str, int, int]] = []
+_annotating = False
+_profiler_enabled = torch._C._autograd._profiler_enabled
+
+
+class span(contextlib.ContextDecorator):
+    """A host span of the program, as a context manager or a decorator (see
+    the module docstring). Spans nest; the innermost open one names what
+    the host is doing."""
+
+    def __init__(self, name: str) -> None:
+        self.name = name
+        self._range = None
+
+    def _recreate_cm(self):
+        return span(self.name)
+
+    def __enter__(self):
+        if _annotating:
+            self._range = torch.autograd.profiler.record_function(self.name)
+            self._range.__enter__()
+        self._t0 = time.time_ns()
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        t1 = time.time_ns()
+        total = span_totals.get(self.name)
+        if total is None:
+            span_totals[self.name] = [1, t1 - self._t0]
+        else:
+            total[0] += 1
+            total[1] += t1 - self._t0
+        if _profiler_enabled():
+            _intervals.append((self.name, self._t0, t1))
+        if self._range is not None:
+            self._range.__exit__(*exc)
+            self._range = None
+        return False
+
+
+def intervals(start_ns: int, end_ns: int) -> list[tuple[str, int, int]]:
+    """The spans kept while a profiler ran that overlap [start_ns, end_ns],
+    clipped to it, as (name, start ns, end ns) in the order they ended (an
+    inner span before the one around it)."""
+    return [(n, max(s, start_ns), min(e, end_ns)) for n, s, e in _intervals
+            if s < end_ns and e > start_ns]
+
+
+def reset_spans() -> None:
+    """Forget every span's totals and intervals."""
+    span_totals.clear()
+    _intervals.clear()
+
+
+@contextlib.contextmanager
+def annotate():
+    """Within the block every span is also a profiler range
+    (`record_function`), so that a trace shows the spans beside the
+    kernels they launched."""
+    global _annotating
+    before, _annotating = _annotating, True
+    try:
+        yield
+    finally:
+        _annotating = before
+
+
+# --------------------------------------------------------------------------
+# the stage map of a captured graph
+# --------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class StageMap:
+    """The stages of a captured CUDA graph in the order a replay runs them:
+    stage `names[i]` begins at device operation `starts[i]` (kernel, copy or
+    fill, counted from 0) and ends where the next begins; `ops` counts the
+    graph's nodes, each a device operation of a replay. A name recurs (each
+    tick's systems, each run of GBP slots of one kind)."""
+
+    names: tuple[str, ...]
+    starts: tuple[int, ...]
+    ops: int
+
+
+_recorder = None
+_newest_map: StageMap | None = None
+
+
+def stage(name: str) -> None:
+    """Mark the start of stage `name` in the graph being captured under a
+    `StageRecorder`; nothing elsewhere."""
+    if _recorder is not None:
+        _recorder.mark(name)
+
+
+def newest_stage_map() -> StageMap | None:
+    """The map of the newest capture that recorded one."""
+    return _newest_map
+
+
+def stage_map_of(names, starts, ops: int) -> StageMap:
+    """The map of marks `names` at device operations `starts`: a mark at
+    the same operation as the next one is dropped (its stage ran none)."""
+    kept_names, kept_starts = [], []
+    for name, start in zip(names, starts):
+        if kept_starts and kept_starts[-1] == start:
+            kept_names[-1] = name
+        else:
+            kept_names.append(name)
+            kept_starts.append(start)
+    return StageMap(tuple(kept_names), tuple(kept_starts), ops)
+
+
+class StageRecorder:
+    """Records the stages marked (`stage`) while it is entered, inside a
+    CUDA graph capture, and sets `map` when the block ends without an
+    error, before the capture does. Marks of one name in a row make one
+    stage. At each new stage `tail()` reads the capture's current node (an
+    int, 0 before the first operation; None where the capture forked); at
+    the end `positions(tails)` gives each node's count of nodes up to it and
+    their total (None where the graph is not one chain). A
+    capture it cannot map gets no map and a warning. Without `tail` it
+    records nothing."""
+
+    def __init__(self, tail=None, positions=None) -> None:
+        self.tail, self.positions = tail, positions
+        self.names: list[str] = []
+        self.tails: list[int] = []
+        self.failed: str | None = None
+        self.map: StageMap | None = None
+
+    def mark(self, name: str) -> None:
+        # a mark of the stage already open (the next of a run of internal
+        # slots) continues it and reads nothing
+        if self.failed is None and (not self.names or self.names[-1] != name):
+            node = self.tail()
+            if node is None:
+                self.failed = "the capture forked"
+            else:
+                self.names.append(name)
+                self.tails.append(node)
+
+    def __enter__(self):
+        global _recorder
+        if self.tail is not None:
+            _recorder = self
+        return self
+
+    def __exit__(self, exc_type, *exc) -> bool:
+        global _recorder, _newest_map
+        _recorder = None
+        if exc_type is not None or self.tail is None:
+            return False
+        found = None if self.failed else self.positions(self.tails)
+        if found is None:
+            warnings.warn(f"no stage map recorded: {self.failed or 'the graph is not one chain'}",
+                          RuntimeWarning, stacklevel=2)
+            return False
+        self.map = _newest_map = stage_map_of(self.names, *found)
+        return False
+
+
+def _graph_nodes_lib() -> ctypes.CDLL:
+    """csrc/graph_nodes.cu, built and loaded, its runtime started."""
+    from magics_tpu_torch.kernels.build import load
+
+    lib = load("graph_nodes")
+    ptr, i64 = ctypes.c_void_p, ctypes.c_longlong
+    lib.graph_nodes_start.argtypes = []
+    lib.graph_nodes_start.restype = ctypes.c_int
+    lib.graph_capture_tail.argtypes = [ptr, ctypes.POINTER(ptr)]
+    lib.graph_capture_tail.restype = ctypes.c_int
+    lib.graph_capture_positions.argtypes = [ptr, ctypes.POINTER(ptr), i64,
+                                            ctypes.POINTER(i64)]
+    lib.graph_capture_positions.restype = i64
+    if lib.graph_nodes_start() != 0:
+        raise RuntimeError("graph_nodes: the CUDA runtime did not start")
+    return lib
+
+
+def capture_recorder(device: torch.device):
+    """A `StageRecorder` of the capture on `device`'s current stream, to
+    enter inside the capture; made before it (the library is built and
+    its runtime started here, which a capture would refuse)."""
+    from magics_tpu_torch.kernels.build import current_stream
+
+    lib = _graph_nodes_lib()
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    out, stream = ctypes.c_void_p(), ctypes.c_void_p()
+    ref, read_tail = ctypes.byref(out), lib.graph_capture_tail
+
+    def tail():
+        if not stream.value:   # the capture's stream, current from its start
+            stream.value = current_stream(index)
+        if read_tail(stream, ref) != 0:
+            return None
+        return out.value or 0
+
+    def positions(tails):
+        n = len(tails)
+        found = (ctypes.c_longlong * n)()
+        ops = lib.graph_capture_positions(current_stream(index),
+                                          (ctypes.c_void_p * n)(*tails), n, found)
+        return None if ops < 0 else (list(found), ops)
+
+    return StageRecorder(tail, positions)
+
+
+#: names of operations that a replay queues outside its graph: a registered
+#: generator's seed and offset fills
+OUTSIDE_GRAPH = ("FillFunctor",)
+
+#: the slot kernels and the stage each runs in (kernels/hot.py)
+SLOT_STAGES = {"internal_slot_kernel": "gbp.internal", "variable_slot_kernel": "gbp.external",
+               "interrobot_slot_kernel": "gbp.external", "gather_rows_kernel": "gbp.external"}
+
+
+def _stage_at(stages: StageMap, position: int) -> str:
+    return stages.names[bisect.bisect_right(stages.starts, position) - 1]
+
+
+def slots_in_place(ops, stages: StageMap, first: int = 0) -> bool:
+    """Whether every slot kernel among `ops` (in the order they ran, the
+    first at the map's operation `first`) falls in its slot's stage, and
+    at least one does."""
+    seen = False
+    for i, op in enumerate(ops):
+        for kernel, want in SLOT_STAGES.items():
+            if kernel in op[0]:
+                if _stage_at(stages, first + i) != want:
+                    return False
+                seen = True
+    return seen
+
+
+def stage_device_ms(trace_ops, stages: StageMap, ticks: int) -> dict[str, float] | None:
+    """Device milliseconds a tick by stage name, from the device operations
+    of one profiled replay of the mapped graph (name, start ns, end ns, ...;
+    kernels, copies and fills). Operations queued before the graph's own
+    (`OUTSIDE_GRAPH`) are left out first. A profiler session may miss the
+    first operations a replay runs: the rest are then placed from the
+    replay's end, and kept only where every slot kernel falls in its slot's
+    stage (the missed ones count nothing). None where the operations do not
+    fit the map."""
+    ops = sorted(trace_ops, key=lambda op: op[1])
+    extra = len(ops) - stages.ops
+    first = max(0, -extra)
+    if extra > 0:
+        if not all(any(k in op[0] for k in OUTSIDE_GRAPH) for op in ops[:extra]):
+            return None
+        ops = ops[extra:]
+    elif first and (first >= stages.ops or not slots_in_place(ops, stages, first)):
+        return None
+    out: dict[str, float] = {}
+    ends = stages.starts[1:] + (stages.ops,)
+    for name, a, b in zip(stages.names, stages.starts, ends):
+        ns = sum(op[2] - op[1] for op in ops[max(0, a - first):max(0, b - first)])
+        out[name] = out.get(name, 0.0) + ns / 1e6 / ticks
+    return out

@@ -183,6 +183,7 @@ def run_row(base, scenario: str, cell: dict, *, out_dir: Path, max_time=None,
     """One row: a fresh Simulator of the cell's scenario, run, exported to
     out_dir/export_{tag}.json and analysed."""
     from magics_tpu_torch.analysis import analyse
+    from magics_tpu_torch.profiling import span
     from magics_tpu_torch.sim.simulator import Simulator
 
     sc = scenario_for(base, cell)
@@ -194,7 +195,8 @@ def run_row(base, scenario: str, cell: dict, *, out_dir: Path, max_time=None,
     t2 = time.perf_counter()
     export = sim.export(out_dir / f"export_{tag(scenario, cell)}.json")
     t3 = time.perf_counter()
-    metrics = analyse(export)
+    with span("row.analyse"):
+        metrics = analyse(export)
     t4 = time.perf_counter()
     metrics.pop("per_robot", None)
     row = {

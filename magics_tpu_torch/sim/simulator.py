@@ -26,6 +26,11 @@ edit of the params drops the graphs, which captured the old ones. On the CPU
 
 The comms-failure draws come from a `torch.Generator` on the state's device,
 seeded from the scenario seed (ROADMAP F3): one seed gives bit-equal runs.
+
+The shell's work is timed by the program's spans (profiling.py): `sim.build`,
+`sim.reset`, `sim.export`, and in `advance` and `run` each step of a chunk
+(`sim.chunk` around `sim.load`, `sim.replay` or `sim.eager`; `sim.wait`
+for the card before the diagnostics fetch; `sim.own`, `sim.summary`, ...).
 """
 
 from __future__ import annotations
@@ -39,6 +44,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from magics_tpu_torch import profiling
 from magics_tpu_torch.config.loader import Scenario
 from magics_tpu_torch.env.sdf import distance_transform, env_to_image, env_to_sdf
 from magics_tpu_torch.graph import tick as T
@@ -131,6 +137,7 @@ def _np(x: torch.Tensor) -> np.ndarray:
 
 
 class Simulator:
+    @profiling.span("sim.build")
     def __init__(
         self,
         scenario: Scenario,
@@ -376,6 +383,7 @@ class Simulator:
                 mission.add_robot(i, sp.taskpoints)
         return mission
 
+    @profiling.span("sim.reset")
     def reset(self, seed: int | None = None) -> None:
         """Hot-reload the scenario (the F5 flow, simulation_loader.rs:687-713):
         despawn everything, reset virtual time, reseed the generator, rebuild
@@ -446,8 +454,9 @@ class Simulator:
         where the state is not already the graph's own), else eagerly."""
         if self.device.type != "cuda" or n not in graph_sizes:
             self.stats.eager_chunks += 1
-            return T.run_ticks(state, self.sdf, self.params, n, self.env_dist,
-                               generator=self.generator)
+            with profiling.span("sim.eager"):
+                return T.run_ticks(state, self.sdf, self.params, n, self.env_dist,
+                                   generator=self.generator)
         entry = self._graphs.get(n)
         if entry is None:
             t0 = time.perf_counter()
@@ -461,12 +470,14 @@ class Simulator:
             if state is not graph.state:
                 start = torch.cuda.Event(enable_timing=True)
                 end = torch.cuda.Event(enable_timing=True)
-                start.record()
-                graph.load(state)
-                end.record()
+                with profiling.span("sim.load"):
+                    start.record()
+                    graph.load(state)
+                    end.record()
                 self.stats.load_events.append((start, end))
         self.stats.graph_chunks += 1
-        return graph.replay()
+        with profiling.span("sim.replay"):
+            return graph.replay()
 
     def _keep_graphs(self, sizes: set) -> None:
         """Drop the graphs of other chunk sizes and those captured under
@@ -485,6 +496,7 @@ class Simulator:
             return clone_state(state)
         return state
 
+    @profiling.span("sim.run")
     def run(
         self, max_ticks: int | None = None, progress=None, chunk_ticks: int = CHUNK_TICKS,
         checkpoint_path=None, checkpoint_every_s: float | None = None,
@@ -504,7 +516,8 @@ class Simulator:
         if max_ticks is None:
             max_ticks = int(self.max_sim_time * self.hz)
         state = self.state
-        tick = int(state.tick)  # nonzero when resumed
+        with profiling.span("sim.tick"):
+            tick = int(state.tick)  # nonzero when resumed
         last_spawn = max(s.spawn_tick for s in self.specs)
         ckpt_interval = (
             int(checkpoint_every_s * self.hz) if checkpoint_every_s else None
@@ -519,25 +532,38 @@ class Simulator:
                 # polls every FixedUpdate, robot.rs:643-648)
                 n = min(n, MISSION_CHUNK_TICKS)
                 sizes.add(MISSION_CHUNK_TICKS)
-            self._keep_graphs(sizes)
-            state = self._chunk(state, n, sizes)
+            with profiling.span("sim.keep"):
+                self._keep_graphs(sizes)
+            with profiling.span("sim.chunk"):
+                state = self._chunk(state, n, sizes)
             tick += n
             if self.mission is not None:
-                state = self.mission.poll(state, tick)
-            self.diagnostics.sample(state, self.params, tick * self.dt)
+                with profiling.span("sim.poll"):
+                    state = self.mission.poll(state, tick)
+            # the diagnostics row is queued behind the chunk, then the host
+            # waits for the card, then fetches it
+            with profiling.span("sim.sample"):
+                row = self.diagnostics.queue_row(state)
+            if state.pos.is_cuda:
+                with profiling.span("sim.wait"):
+                    torch.cuda.current_stream(state.pos.device).synchronize()
+            with profiling.span("sim.sample"):
+                self.diagnostics.sample(state, self.params, tick * self.dt, row=row)
             n_done = self.diagnostics.completed[-1]
             if progress is not None:
                 progress(tick, n_done)
             if on_chunk is not None:
                 # live-view hook: receives the device state
-                on_chunk(state, tick)
+                with profiling.span("sim.on_chunk"):
+                    on_chunk(state, tick)
             if (
                 checkpoint_path is not None
                 and ckpt_interval
                 and tick - last_ckpt >= ckpt_interval
             ):
-                self.state = self._owned(state)
-                self.save_checkpoint(checkpoint_path)
+                with profiling.span("sim.checkpoint"):
+                    self.state = self._owned(state)
+                    self.save_checkpoint(checkpoint_path)
                 last_ckpt = tick
             if (
                 tick >= last_spawn
@@ -546,22 +572,26 @@ class Simulator:
             ):
                 break
 
-        self.state = self._owned(state)
+        with profiling.span("sim.own"):
+            self.state = self._owned(state)
         state = self.state
         self.final_tick = tick
         if harvest:
-            self._harvest_log(state)
-        return {
-            "ticks": tick,
-            "makespan": tick * self.dt,
-            "completed": int(state.completed.sum()),
-            "robots": len(self.specs),
-            "rr_collisions": int(state.rr_collisions),
-            "re_collisions": int(state.re_collisions),
-            "nbr_overflow": int(state.nbr_overflow),
-            "grid_overflow": int(state.grid_overflow),
-        }
+            with profiling.span("sim.harvest"):
+                self._harvest_log(state)
+        with profiling.span("sim.summary"):
+            return {
+                "ticks": tick,
+                "makespan": tick * self.dt,
+                "completed": int(state.completed.sum()),
+                "robots": len(self.specs),
+                "rr_collisions": int(state.rr_collisions),
+                "re_collisions": int(state.re_collisions),
+                "nbr_overflow": int(state.nbr_overflow),
+                "grid_overflow": int(state.grid_overflow),
+            }
 
+    @profiling.span("sim.advance")
     def advance(self, n: int, chunk_ticks: int = CHUNK_TICKS, progress=None,
                 on_chunk=None) -> dict:
         """Run exactly n ticks, whether or not the robots have finished,
@@ -570,7 +600,8 @@ class Simulator:
         own would cost a capture per distinct n (seconds each on the card).
         The log is not harvested; the caller harvests when it needs the
         series."""
-        tick = int(self.state.tick)
+        with profiling.span("sim.tick"):
+            tick = int(self.state.tick)
         end = tick + n
         while True:
             summary = self.run(max_ticks=min(end, tick + chunk_ticks), chunk_ticks=chunk_ticks,
@@ -608,6 +639,7 @@ class Simulator:
 
     # ------------------------------------------------------------------
 
+    @profiling.span("sim.export")
     def export(self, path: str | Path | None = None) -> dict:
         """JSON export matching export.rs:250-350 so the reference's analysis
         scripts run unchanged."""
