@@ -5,7 +5,7 @@
 Phases, each printing its own lines; any failure raises and exits non-zero:
 
 1. Device: the card's name and power limit (nvidia-smi), torch, CUDA, nvcc.
-2. Build: compiles the three kernel libraries from csrc/ at once
+2. Build: compiles the kernel libraries from csrc/ at once
    (kernels/build.py) and prints their ptxas lines.
 3. Kernels: each kernel against its plain PyTorch version on the card, at
    the bench shapes (R=1024, K=32, V=21, W=2, float32). The slot kernels on
@@ -16,7 +16,10 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    the variable slot. The inter-robot message table on a sender-mode bench
    state after 3 ticks with some cavities unseeded and the peers' positions
    moved into range. The row gather, bit for bit, at its four call sites'
-   shapes. Prints errors, flips, CUDA-event times of both, each kernel's
+   shapes. The external sums (kernels/ext_sum.py), bit for bit below 64
+   slots, on the bench state's inbox and on seeded inboxes at the bench,
+   swarm (R=16384, K=24) and Circle (R=50, K=49) shapes, each timed.
+   Prints errors, flips, CUDA-event times of both, each kernel's
    device time per launch (torch.profiler; for the variable slot, the
    message table and the row gather also with L2 flushed before each
    launch) and its bound, and for the row gather `index_select`'s call and
@@ -51,8 +54,8 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    "receiver_compact" and then "sender", through compile_ticks: capture
    seconds, 1 warm and 3 timed chunks of 10 ticks; asserts finite state,
    motion, no overflow, live connectivity, the capture's launches per tick
-   (10 / 10 / 10 / 20 and 10 / 10 / 0 / 10) and 10 eager ticks bit-equal
-   to one replay; prints scale.py's line, a metric line, the state's bytes
+   (10 / 10 / 10 / 20 / 11 and 10 / 10 / 0 / 10 / 11) and 10 eager ticks
+   bit-equal to one replay; prints scale.py's line, a metric line, the state's bytes
    and the peak memory, each kernel's launches per tick (the capture's
    count), its device us per launch (torch.profiler of one replay where it
    records the kernel, else of one eager tick, named in `device_us_of`)
@@ -82,8 +85,8 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    formation.yaml as JSON documents, which need no PyYAML): (a) the Circle
    Experiment of 9(a) and the ring of 9(f); (b) `cli.main` in this process
    with --export --snapshot --player --checkpoint: every robot completes,
-   the export bit-equal to 9(a)'s, launches a tick 50 / 10 / 10 / 20 (the
-   counts set to 0 just before and read just after), the PNG's pixels
+   the export bit-equal to 9(a)'s, launches a tick 50 / 10 / 10 / 20 / 11
+   (the counts set to 0 just before and read just after), the PNG's pixels
    render_trajectories' array, the player embedding the export, and the
    host ms of each output; (c) the REPL in a subprocess, float64 (the plain
    passes on the card): step 3, step 3, run 1, status, set, `load` the
@@ -97,8 +100,8 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    magics_tpu_torch.parallel.launch --backend gloo` sharing one card (NCCL
    takes a card per rank), each with R_SCALE / 2 robots of the scale workload,
    5 eager ticks under "sender" and then "receiver_compact": each rank
-   asserts its kernel launches a tick (10 / 10 / 10 / 20 and 10 / 10 / 0 /
-   10) and prints its ms/tick, its collective bytes a tick by call site
+   asserts its kernel launches a tick (10 / 10 / 10 / 20 / 11 and 10 / 10 /
+   0 / 10 / 11) and prints its ms/tick, its collective bytes a tick by call site
    beside the exchange's traffic model (which must match exactly) and its
    kernels' device us per launch (rank 0's torch.profiler); the ranks agree
    on a checksum, and rank 0's gathered state is held to 5 one-process
@@ -114,13 +117,13 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    passes) within PARITY_F64_RMSE; circle (80 ticks) and junction (60)
    through the kernels, completion within +-1 and each robot's completion
    tick within the harness's window of the oracle's; each kernel run's
-   launches a tick from the counters, then K1-K4 each against its plain
-   version at the case's shapes; (b) `run_experiment.main` in this process
+   launches a tick from the counters, then K1-K4 and the external sums each
+   against its plain version at the case's shapes; (b) `run_experiment.main` in this process
    over the Circle Experiment's directory: 10 and 50 robots, seeds 0 and
    31, max time 60 s, each row to the experiment's contract (every robot
-   completes, makespan < 60 s, no overflow) at 50 / 10 / 10 / 20 launches
-   a tick, K1-K4 each against its plain version at a 10-robot row's
-   shapes, the 50-robot seed-0 row's export bit-equal to a direct
+   completes, makespan < 60 s, no overflow) at 50 / 10 / 10 / 20 / 11
+   launches a tick, K1-K4 and the external sums each against its plain
+   version at a 10-robot row's shapes, the 50-robot seed-0 row's export bit-equal to a direct
    `Simulator` run, capture and replay seconds, export and analysis ms per
    row; then 10 robots at comms failure 0.0 and 0.7, the 0.7 row's
    failed-antenna share within 0.05.
@@ -150,32 +153,37 @@ SOURCE = {
     "variable_slot": "magics_tpu_torch/kernels/csrc/gbp_slot.cu",
     "interrobot_slot": "magics_tpu_torch/kernels/csrc/ir_slot.cu",
     "gather_rows": "magics_tpu_torch/kernels/csrc/layout.cu",
+    "ext_sum": "magics_tpu_torch/kernels/csrc/ext_sum.cu",
 }
 REPLACES = {
     "internal_slot": "magics_tpu/kernels/gbp_slot.py:838",
     "variable_slot": "magics_tpu/kernels/gbp_slot.py:802",
     "interrobot_slot": "magics_tpu/kernels/ir_slot.py:121",
     "gather_rows": "magics_tpu/kernels/layout.py:31",
+    # no TPU kernel: the JAX package's external sums are XLA
+    "ext_sum": "none (XLA: magics_tpu/kernels/hot.py:152 _ext_sum_hot)",
 }
 # Kernel launches per tick of the bench workload (50 internal + 10 external
 # slots). Under "sender" each external slot makes one message table, one
 # delivery gather of the peers' outboxes and one response gather; under
-# "receiver_compact" one gather of the peers' compact tables.
+# "receiver_compact" one gather of the peers' compact tables. Under both the
+# external sums run once before the schedule and once per external slot.
 LAUNCHES_PER_TICK = {
     "sender": {"internal_slot": 50, "variable_slot": 10, "interrobot_slot": 10,
-               "gather_rows": 20},
+               "gather_rows": 20, "ext_sum": 11},
     "receiver_compact": {"internal_slot": 50, "variable_slot": 10, "interrobot_slot": 0,
-                         "gather_rows": 10},
+                         "gather_rows": 10, "ext_sum": 11},
 }
 # The same for the scale workload (10 internal + 10 external slots).
 SCALE_LAUNCHES_PER_TICK = {
     "sender": {"internal_slot": 10, "variable_slot": 10, "interrobot_slot": 10,
-               "gather_rows": 20},
+               "gather_rows": 20, "ext_sum": 11},
     "receiver_compact": {"internal_slot": 10, "variable_slot": 10, "interrobot_slot": 0,
-                         "gather_rows": 10},
+                         "gather_rows": 10, "ext_sum": 11},
 }
 KERNEL_NAMES = {"internal_slot": "internal_slot_kernel", "variable_slot": "variable_slot_kernel",
-                "interrobot_slot": "interrobot_slot_kernel", "gather_rows": "gather_rows_kernel"}
+                "interrobot_slot": "interrobot_slot_kernel", "gather_rows": "gather_rows_kernel",
+                "ext_sum": "ext_sum_kernel"}
 # The H100 SXM's published peaks (NVIDIA's data sheet, at its 700 W limit):
 # HBM bandwidth and float32 outside the tensor cores. A kernel's bound is the
 # larger of its bytes over the first and its operations over the second,
@@ -192,9 +200,11 @@ FP32_OPS_PER_S = 67e12
 # three 4x4 products each, ~1,080 a factor; the belief update's inverse,
 # residual product and sums, ~400; obstacle and tracking ~160), the variable
 # slot per robot and variable (~400), the message table per factor (a 4x4
-# determinant, two columns of the adjugate, 13 divisions, ~250). The row
+# determinant, two columns of the adjugate, 13 divisions, ~250), the
+# external sums per (robot, slot, position) (7 multiplies, 5 adds). The row
 # gather only moves bytes.
-OPS_PER_ITEM = {"internal_slot": 1640, "variable_slot": 400, "interrobot_slot": 250}
+OPS_PER_ITEM = {"internal_slot": 1640, "variable_slot": 400, "interrobot_slot": 250,
+                "ext_sum": 12}
 # Kernel vs plain version, both float32 on the card: each vector or matrix
 # of each field over its own scale, max(|plain| over its components, 1)
 # (gbp_slot.scaled_error; a response, belief less incoming message, also
@@ -245,11 +255,11 @@ def device_phase(torch) -> None:
 
 def build_phase() -> None:
     from magics_tpu_torch.kernels import build
-    from magics_tpu_torch.kernels import gbp_slot, ir_slot, layout
+    from magics_tpu_torch.kernels import ext_sum, gbp_slot, ir_slot, layout
 
     t0 = time.perf_counter()
     build.build_all()   # one nvcc per source, all at once
-    for module in (gbp_slot, ir_slot, layout):
+    for module in (gbp_slot, ir_slot, layout, ext_sum):
         module._lib()
     log(f"[build] {', '.join(build.SOURCES)} built and loaded in "
         f"{time.perf_counter() - t0:.2f} s")
@@ -261,16 +271,15 @@ def build_phase() -> None:
 
 
 def reset_counts() -> None:
-    from magics_tpu_torch.kernels import gbp_slot, ir_slot, layout
+    from magics_tpu_torch.kernels import reset_launch_counts
 
-    for module in (gbp_slot, ir_slot, layout):
-        module.reset_launch_counts()
+    reset_launch_counts()
 
 
 def read_counts() -> dict:
-    from magics_tpu_torch.kernels import gbp_slot, ir_slot, layout
+    from magics_tpu_torch.kernels import launch_counts
 
-    return {**gbp_slot.launch_counts, **ir_slot.launch_counts, **layout.launch_counts}
+    return launch_counts()
 
 
 def obstacle_sdf(n: int = 128) -> np.ndarray:
@@ -601,6 +610,7 @@ def kernel_phase(torch, device) -> dict:
     state = T.run_ticks(state, sdf, params, 3)
     results["interrobot_slot"] = interrobot_check(torch, state, params, "synthetic")
     results["gather_rows"] = gather_check(torch, state)
+    results["ext_sum"] = ext_sum_check(torch, state.ext_inbox)
     return results
 
 
@@ -727,6 +737,76 @@ def gather_check(torch, state) -> dict:
     return {"max_abs_err": 0.0, **shapes["sender delivery"],
             "shapes": {site: {k: v for k, v in t.items() if k != "bound_by"}
                        for site, t in shapes.items()}}
+
+
+# The external sums' shapes timed in kernel_phase: (R, K, V-1) of the bench
+# workload, the swarm (bench/scale.py, the benchmark's swarm cell) and the
+# Circle Experiment (the sweep and live cells)
+EXT_SUM_SHAPES = {"bench": (R_BENCH, 32, 20), "swarm": (R_SCALE, 24, 20),
+                  "circle": (50, 49, 20)}
+
+
+def seeded_inbox(torch, R: int, K: int, V1: int, seed: int = 0):
+    """[R, K, V1, 4] float32 (gx, gy, t, s) on the card, s >= 0, about a
+    third of the slots and every seventh robot empty."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = 2.0 * torch.randn((R, K, V1, 4), generator=g, device="cuda")
+    x[..., 3] = x[..., 3].abs()
+    x[torch.rand((R, K), generator=g, device="cuda") < 0.35] = 0.0
+    x[::7] = 0.0
+    return x
+
+
+def ext_sum_compare(torch, x, label: str) -> float:
+    """The external sums of inbox `x` against their plain version: every
+    entry within `ext_sum.sum_tolerance` (float32 summation roundoff; 0
+    where every term is 0), and bit for bit below 64 slots, where the
+    kernel sums in the plain CUDA reduction's order. Returns the largest
+    absolute difference."""
+    from magics_tpu_torch.kernels import ext_sum as E
+
+    got = E.ext_sum_hot(x)
+    want = E.ext_sum_hot_reference(x)
+    torch.cuda.synchronize()
+    worst, share = 0.0, 0.0
+    for g, w, tol in zip(got, want, E.sum_tolerance(x)):
+        err = (g.double() - w.double()).abs()
+        if not bool((err <= tol).all()):
+            raise AssertionError(f"ext_sum {label}: {int((err > tol).sum())} entries past "
+                                 f"summation roundoff")
+        worst = max(worst, float(err.max()))
+        share = max(share, float((err / tol.clamp(min=1e-300)).max()))
+    if x.shape[1] < 64 and worst != 0.0:
+        raise AssertionError(f"ext_sum {label}: not bit-equal to the plain CUDA sums below "
+                             f"64 slots (max |err| {worst:.3e})")
+    log(f"[kernels] ext_sum {label} [{', '.join(map(str, x.shape))}]: max |err| {worst:.3e}, "
+        f"at most {share:.3f} of the roundoff bound")
+    return worst
+
+
+def ext_sum_check(torch, inbox) -> dict:
+    """The external sums against their plain version on the bench state's
+    inbox and on seeded inboxes at EXT_SUM_SHAPES, each shape timed (warm
+    and with L2 flushed) against its bound: the inbox read once, both
+    planes written once. Returns the bench shape's results with every
+    shape's under "shapes"; `device_us` is the warm time, as the main path
+    sums an inbox the external pass has just written."""
+    from magics_tpu_torch.kernels import ext_sum as E
+
+    err = ext_sum_compare(torch, inbox, "bench state")
+    shapes = {}
+    for name, (R, K, V1) in EXT_SUM_SHAPES.items():
+        x = seeded_inbox(torch, R, K, V1, seed=R + K)
+        err = max(err, ext_sum_compare(torch, x, name))
+        nb = nbytes([x]) + 80 * R * (V1 + 1)
+        t = timed(torch, f"ext_sum {name} (R={R}, K={K}, V={V1 + 1})",
+                  lambda: E.ext_sum_hot(x), lambda: E.ext_sum_hot_reference(x),
+                  "ext_sum_kernel", nb, OPS_PER_ITEM["ext_sum"] * R * K * V1, cold=True)
+        t["device_us"] = t["device_us_warm"]
+        shapes[name] = t
+    return {"max_abs_err": err, **shapes["bench"],
+            "shapes": {name: {k: v for k, v in t.items() if k != "bound_by"}
+                       for name, t in shapes.items()}}
 
 
 def small_input_phase(torch, device) -> None:
@@ -955,9 +1035,10 @@ def scale_bounds(torch, state, params, sdf, exchange: str) -> dict:
     """Each kernel's bound at the scale shapes, at the state's own inputs
     (slot_bytes and friends, as the bench-shape checks count them), and
     each kernel against its plain version there: K1 and K2 to RTOL of each
-    vector's or matrix's scale, K3 (sender) on the synthetic variant of
-    its inputs (the ring's 4.9 m spacing leaves no factor in range yet), K4
-    bit for bit at this exchange's call sites."""
+    vector's or matrix's scale, the external sums within summation
+    roundoff on the state's inbox and a seeded one, K3 (sender) on the
+    synthetic variant of its inputs (the ring's 4.9 m spacing leaves no
+    factor in range yet), K4 bit for bit at this exchange's call sites."""
     from magics_tpu_torch.kernels import gbp_slot as G
     from magics_tpu_torch.kernels import hot as HOT
     from magics_tpu_torch.kernels import ir_slot as IR
@@ -978,6 +1059,12 @@ def scale_bounds(torch, state, params, sdf, exchange: str) -> dict:
             max_flips=MAX_FLIP_SHARE * want["belief_mean"][0].numel())
     out["variable_slot"] = bound(variable_slot_bytes(torch, var_in, want),
                                  OPS_PER_ITEM["variable_slot"] * n_gated * params.n_vars)
+    inbox = state.ext_inbox
+    R, K, V1, _ = inbox.shape
+    ext_sum_compare(torch, inbox, f"R={R}")
+    ext_sum_compare(torch, seeded_inbox(torch, R, K, V1), f"R={R} seeded")
+    out["ext_sum"] = bound(nbytes([inbox]) + 80 * R * (V1 + 1),
+                           OPS_PER_ITEM["ext_sum"] * R * K * V1)
     if exchange == "sender":
         # the bound of the main path's own inputs: nothing in range yet
         inputs = IR.sender_inputs(state, params)
@@ -1269,7 +1356,8 @@ def gather_bits(torch, state, label: str) -> None:
 
 
 def slot_kernels_check(torch, state, params, sdf, label: str) -> None:
-    """K1 and K2 against their plain versions on `state`'s slot inputs."""
+    """K1, K2 and the external sums against their plain versions on
+    `state`'s slot inputs."""
     from magics_tpu_torch.kernels import gbp_slot as G
     from magics_tpu_torch.kernels import hot as HOT
 
@@ -1282,11 +1370,13 @@ def slot_kernels_check(torch, state, params, sdf, label: str) -> None:
     want = G.variable_slot_reference(var_in, sp)
     compare(torch, f"variable_slot {label}", G.variable_slot(var_in, sp), want,
             max_flips=MAX_FLIP_SHARE * want["belief_mean"][0].numel())
+    ext_sum_compare(torch, state.ext_inbox, label)
 
 
 def kernels_at(torch, state, params, sdf, label: str) -> None:
     """Every kernel of the path alone against its plain version on
-    `state`'s inputs, at its shapes: K1 and K2 (slot_kernels_check), K3
+    `state`'s inputs, at its shapes: K1, K2 and the external sums
+    (slot_kernels_check), K3
     (interrobot_compare) and K4 (gather_bits). No whole tick is compared:
     on the chaotic crossings one float32 tick of the kernels' path and of
     the plain passes differs by up to 1.8e-2 of scale (the inter-robot
@@ -2121,7 +2211,7 @@ def shard_phase(torch) -> dict:
 
 # The parity cases' slots, 10 internal + 10 external a tick under "sender"
 PARITY_LAUNCHES_PER_TICK = {"internal_slot": 10, "variable_slot": 10, "interrobot_slot": 10,
-                            "gather_rows": 20}
+                            "gather_rows": 20, "ext_sum": 11}
 # The lanes case in float64 on the card's plain passes against the oracle:
 # roundoff only (over its 80 ticks 4.6e-11 m for the port's tick and 4.8e-11
 # for the JAX tick, both on the CPU), so 1e-6 m leaves four orders for
@@ -2197,7 +2287,7 @@ def parity_phase(torch) -> dict:
 def row_contract(done) -> dict:
     """A harness row against the experiment's contract (every robot
     completes, makespan < 60 s, no overflow) and its chunk graph's launches
-    a tick against the sender workload's 50 / 10 / 10 / 20. Returns the
+    a tick against the sender workload's 50 / 10 / 10 / 20 / 11. Returns the
     launches a tick."""
     row, sim = done.row, done.sim
     if (row["completed"] != row["robots"] or row["makespan"] >= 60.0
@@ -2224,8 +2314,8 @@ def row_contract(done) -> dict:
 def experiment_phase(torch, tmpdir) -> dict:
     """(b) run_experiment.main in this process over the Circle Experiment's
     directory (phase 10's writer): SWEEP's 4 rows, each to the contract at
-    50 / 10 / 10 / 20 launches a tick, every kernel held against its plain
-    version at a 10-robot row's shapes (kernels_at), the 50-robot seed-0
+    50 / 10 / 10 / 20 / 11 launches a tick, every kernel held against its
+    plain version at a 10-robot row's shapes (kernels_at), the 50-robot seed-0
     row's export bit-equal to a direct Simulator run of the same scenario,
     seed and max time; then FAILURE_SWEEP's 2 rows, the failed-antenna
     share of the active robots after each tick (9(d)'s measure, with 1-tick

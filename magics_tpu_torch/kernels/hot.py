@@ -7,8 +7,9 @@ The state is transposed into this layout once per tick; every internal slot
 is one `internal_slot` launch (the kernel samples the SDF itself); every
 external slot runs the external factor pass on the normal layout (under
 "sender" one `interrobot_slot` launch and one row gather), then one
-`variable_slot` launch and the response delivery (under "sender" one row
-gather); the state is transposed back at the end.
+`ext_sum` launch (the inbox summed into hot planes), one `variable_slot`
+launch and the response delivery (under "sender" one row gather); the state
+is transposed back at the end. The entry sums are one more `ext_sum`.
 The kernels mask the ragged robot edge themselves, so nothing is padded.
 In a captured graph's stage map (profiling.py) the layout changes are
 `gbp.layout`, each run of internal slots `gbp.internal` and each external
@@ -26,7 +27,7 @@ from magics_tpu_torch.core.constants import TRACKING_SKIP_FIRST_N_FACTOR_ITERS
 from magics_tpu_torch.graph import factors as F
 from magics_tpu_torch.graph import tick as T
 from magics_tpu_torch.graph.state import GbpParams, SimState
-from magics_tpu_torch.graph.variables import pad_vars
+from magics_tpu_torch.kernels.ext_sum import ext_sum_hot
 from magics_tpu_torch.kernels.gbp_slot import (
     SlotParams,
     hot,
@@ -108,9 +109,9 @@ def merge_state(state: SimState, h: dict, iter_count: torch.Tensor) -> SimState:
 
 def _ext_sum_hot(state: SimState) -> tuple[torch.Tensor, torch.Tensor]:
     """Sum the external inboxes (compact rank-1) over slots and lift to hot
-    layout over all V variables (external factors touch vars 1..V-1)."""
-    eta, lam = F.rank1_sum(state.ext_inbox, dim=1)  # [R, V1, 4], [R, V1, 4, 4]
-    return hot(pad_vars(eta, 1, 0)), hot(pad_vars(lam, 1, 0))
+    layout over all V variables (external factors touch vars 1..V-1): one
+    `ext_sum` launch on the card (kernels/ext_sum.py)."""
+    return ext_sum_hot(state.ext_inbox)
 
 
 def iterate_gbp_hot(

@@ -20,7 +20,10 @@ vector or matrix of each field within RTOL of its own scale
 (`gbp_slot.scaled_error`; float32 roundoff in another summation order,
 chip_smoke.py states why); for the message table, whose kernel repeats its
 plain version's float order, no zero-pattern flip and IR_RTOL of each
-message's scale (chip_smoke.py's); the row gather bit for bit.
+message's scale (chip_smoke.py's); the row gather bit for bit; the
+external sums (kernels/ext_sum.py) within float32 summation roundoff of
+each entry's terms, and bit for bit below 64 slots, where the kernel sums
+in the order of PyTorch's CUDA reduction.
 
 Chunks captured as CUDA graphs (graph/chunk.py) are held bit for bit
 against the eager ticks on the crossing, dense and grid, under all three
@@ -39,6 +42,7 @@ import torch
 
 from magics_tpu_torch.graph import factors as F
 from magics_tpu_torch.graph import tick as T
+from magics_tpu_torch.kernels import ext_sum as E
 from magics_tpu_torch.kernels import gbp_slot as G
 from magics_tpu_torch.kernels import hot as HOT
 from magics_tpu_torch.kernels import ir_slot as IR
@@ -461,10 +465,97 @@ def test_gather_rows_kernel_row_widths(device, word, words, masked):
     assert torch.equal(got, L.gather_rows_reference(table, idx, mask))
 
 
+# --------------------------------------------------------------------------
+# the external sums (kernels/ext_sum.py)
+# --------------------------------------------------------------------------
+
+def _assert_sums_close(x: torch.Tensor) -> tuple:
+    """The kernel's sums of `x` against the plain version's, each entry
+    within `ext_sum.sum_tolerance` (0 where every term is 0, so the zero
+    planes are held exactly); one launch. Returns the kernel's planes."""
+    before = E.launch_counts["ext_sum"]
+    got = E.ext_sum_hot(x)
+    torch.cuda.synchronize()
+    assert E.launch_counts["ext_sum"] == before + 1
+    for g, w, tol in zip(got, E.ext_sum_hot_reference(x), E.sum_tolerance(x)):
+        assert g.dtype == torch.float32 and g.shape == w.shape and g.is_contiguous()
+        err = (g.double() - w.double()).abs()
+        assert bool((err <= tol).all()), float((err - tol).max())
+    return got
+
+
+@pytest.mark.parametrize("R, K, V1", [
+    (50, 49, 20),       # the Circle Experiment: 4 blocks, the last ragged
+    (16384, 24, 20),    # the swarm: 1,024 blocks
+    (37, 7, 20),        # 37 robots: the last tile ragged
+    (16381, 24, 20),    # the last tile ragged
+    (300, 5, 69),       # three position tiles (32, 32, 5)
+    (9, 1, 2),
+    (40, 70, 20),       # K >= 64: PyTorch splits the sum, another order
+])
+def test_ext_sum_kernel_matches_plain(device, R, K, V1):
+    eta, lam = _assert_sums_close(_smoke().seeded_inbox(torch, R, K, V1, seed=R + K))
+    assert bool(eta[:2, 1:].any()) and bool(lam[:2, :2, 1:].any())
+
+
+@pytest.mark.parametrize("R, K, V1", [(50, 49, 20), (30, 29, 20), (16384, 24, 20), (9, 1, 2)])
+def test_ext_sum_kernel_bit_equal_to_the_plain_cuda_sums(device, R, K, V1):
+    """Below 64 terms a sum, PyTorch's CUDA reduction sums over k in four
+    interleaved partial sums, one thread an output, and the kernel takes
+    the same order: its planes are the plain version's bits, so a run
+    through the kernel follows the plain sums' trajectory. Checked on
+    PyTorch 2.11.0+cu128: a failure after a PyTorch upgrade may be a new
+    reduction order in PyTorch, not a fault of the kernel."""
+    x = _smoke().seeded_inbox(torch, R, K, V1, seed=R * K)
+    for g, w in zip(E.ext_sum_hot(x), E.ext_sum_hot_reference(x)):
+        assert torch.equal(g, w)
+
+
+def test_ext_sum_kernel_all_zero_inbox_writes_every_entry(device):
+    """A zero inbox gives zero planes, also where the planes' memory held
+    NaNs just before (the caching allocator hands the same blocks back)."""
+    R, K, V1 = 1021, 24, 20
+    junk = [torch.full((4, V1 + 1, R), float("nan"), device=device),
+            torch.full((4, 4, V1 + 1, R), float("nan"), device=device)]
+    del junk
+    for g in _assert_sums_close(torch.zeros((R, K, V1, 4), device=device)):
+        assert torch.equal(g, torch.zeros_like(g))
+
+
+def test_ext_sum_kernel_bits_independent_of_R_and_tile(device):
+    """A robot's sums are the same bits in a launch of 16,384 robots and of
+    a slice of 1,000 of them, whose last tile is ragged and whose robots
+    sit at other places in their tiles: each sum runs over k in one
+    thread, so a shard of the swarm sums as the whole."""
+    x = _smoke().seeded_inbox(torch, 16384, 24, 20, seed=3)
+    whole = E.ext_sum_hot(x)
+    for lo in (0, 5003):
+        part = E.ext_sum_hot(x[lo:lo + 1000].contiguous())
+        for a, b in zip(whole, part):
+            assert torch.equal(a[..., lo:lo + 1000], b)
+
+
+@pytest.mark.parametrize("fault", ["dtype", "contiguity", "shape", "alignment"])
+def test_ext_sum_wrapper_refuses_what_the_kernel_does_not_take(device, fault):
+    x = _smoke().seeded_inbox(torch, 37, 7, 20)
+    bad = {
+        "dtype": x.double(),
+        "contiguity": x.transpose(0, 1).contiguous().transpose(0, 1),
+        "shape": x[..., :3].contiguous(),
+        # contiguous, but 4 bytes past a 16-byte boundary
+        "alignment": torch.cat([x.new_zeros(1), x.reshape(-1)])[1:].view(x.shape),
+    }[fault]
+    before = E.launch_counts["ext_sum"]
+    with pytest.raises((TypeError, ValueError)):
+        E.ext_sum_hot(bad)
+    assert E.launch_counts["ext_sum"] == before
+
+
 def test_default_scenario_runs_the_kernels(device):
     """A scenario built without `use_pallas` on the card runs every slot
     through the kernels: per tick one internal_slot per internal slot, one
-    variable_slot, one interrobot_slot and two gather_rows per external."""
+    variable_slot, one interrobot_slot and two gather_rows per external,
+    and one ext_sum before the schedule and one per external slot."""
     params, state, sdf = build_scenario(
         circle_formation(37, circle_radius=30.0, target_speed=15.0), target_speed=15.0,
         planning_horizon=3.0, comms_radius=20.0, internal=4, external=2, n_slots=8,
@@ -473,13 +564,13 @@ def test_default_scenario_runs_the_kernels(device):
     assert state.device.type == "cuda" and params.use_pallas is None
     n_int = sum(1 for i, _ in params.schedule if i)
     n_ext = sum(1 for _, e in params.schedule if e)
-    before = {**G.launch_counts, **IR.launch_counts, **L.launch_counts}
+    before = {**G.launch_counts, **IR.launch_counts, **L.launch_counts, **E.launch_counts}
     T.run_ticks(state, sdf, params, 2)
     torch.cuda.synchronize()
-    after = {**G.launch_counts, **IR.launch_counts, **L.launch_counts}
+    after = {**G.launch_counts, **IR.launch_counts, **L.launch_counts, **E.launch_counts}
     assert {n: after[n] - before[n] for n in after} == {
         "internal_slot": 2 * n_int, "variable_slot": 2 * n_ext,
-        "interrobot_slot": 2 * n_ext, "gather_rows": 4 * n_ext}
+        "interrobot_slot": 2 * n_ext, "gather_rows": 4 * n_ext, "ext_sum": 2 * (1 + n_ext)}
 
 
 def test_sender_kernel_path_tracks_plain_path(device):
@@ -550,12 +641,13 @@ def test_graph_replay_bit_equal_to_eager(device, exchange, path):
     assert graph.launches == {
         "internal_slot": 4 * n_int, "variable_slot": 4 * n_ext,
         "interrobot_slot": 4 * n_ext if exchange == "sender" else 0,
-        "gather_rows": 4 * n_ext * (2 if exchange == "sender" else 1)}
-    before = {**G.launch_counts, **IR.launch_counts, **L.launch_counts}
+        "gather_rows": 4 * n_ext * (2 if exchange == "sender" else 1),
+        "ext_sum": 4 * (1 + n_ext)}
+    before = {**G.launch_counts, **IR.launch_counts, **L.launch_counts, **E.launch_counts}
     graph.replay()
     graph.replay()
     torch.cuda.synchronize()
-    assert {**G.launch_counts, **IR.launch_counts, **L.launch_counts} == before
+    assert {**G.launch_counts, **IR.launch_counts, **L.launch_counts, **E.launch_counts} == before
     _assert_states_bit_equal(graph.state, eager)
     assert float((eager.pos - state.pos).abs().max()) > 1.0
     # re-seeded by a device copy, it runs the same chunk again
@@ -724,9 +816,11 @@ def test_float64_crossing_runs_on_the_card_and_tracks_the_cpu(device):
     assert params.use_pallas is None and not params.uses_kernels(state.device)
     cpu_params, cpu_state, cpu_sdf = script.crossing(builder, torch.float64, device="cpu")
     G.reset_launch_counts()
+    E.reset_launch_counts()
     card = T.run_ticks(state, sdf, params, 10)
     cpu = T.run_ticks(cpu_state, cpu_sdf, cpu_params, 10)
     assert G.launch_counts == {"internal_slot": 0, "variable_slot": 0}
+    assert E.launch_counts == {"ext_sum": 0}
     assert card.pos.dtype == torch.float64
     drift = float((card.pos.cpu() - cpu.pos).abs().max())
     assert drift <= 1e-6, drift
@@ -776,7 +870,7 @@ def test_kernel_lanes_track_the_committed_oracle(device):
     print(f"kernel lanes vs the oracle: RMSE {out['rmse_max_m']:.3e} m; launches a tick "
           f"{per_tick}")
     assert per_tick == {"internal_slot": 10.0, "variable_slot": 10.0, "interrobot_slot": 10.0,
-                        "gather_rows": 20.0}
+                        "gather_rows": 20.0, "ext_sum": 11.0}
     assert out["rmse_max_m"] < 3e-3
     assert out["completed_dense"] == out["completed_oracle"]
 
@@ -903,7 +997,7 @@ def test_two_gloo_ranks_on_the_card_bit_equal_to_one_process(device, exchange, t
     workload's 1024 robots, 3 eager ticks: the gathered state equals 3
     one-process ticks bit for bit in every field (every robot's arithmetic
     is the same; the collectives move bytes and sum integers), and each
-    rank launches K1-K4 as the schedule says."""
+    rank launches K1-K4 and the external sums as the schedule says."""
     import dataclasses
 
     import torch_shard_cases as C
@@ -921,6 +1015,7 @@ def test_two_gloo_ranks_on_the_card_bit_equal_to_one_process(device, exchange, t
     assert bool(want.nbr_mask.any())
     expected = expected_launches(params, device)
     assert expected["internal_slot"] == 10 and expected["gather_rows"] > 0
+    assert expected["ext_sum"] == 11
     for rank in range(2):
         launches = torch.load(f"{out}.launches{rank}")
         assert {k: launches[k] for k in expected} == expected, rank
