@@ -671,17 +671,36 @@ def _external_factor_pass_receiver(
     tiny offsets. "receiver" gathers the [R, V-1, 24] snapshot pack and runs
     the sender's rank-1 maths on it (the same arithmetic, so the same
     inboxes); "receiver_compact" gathers the compact cavity tables
-    [R, V-1, 8] (Sherman-Morrison, equal to roundoff)."""
+    [R, V-1, 8] (Sherman-Morrison, equal to roundoff).
+
+    Its four parts are marked for a captured graph's map (`profiling.part`,
+    each with its sizes R, K, V-1): `exchange.tables` (each robot's table),
+    `exchange.gather` (the gates and the peers' rows), `exchange.messages`
+    and `exchange.deliver` (the inbox and the counter)."""
     R, K = state.nbr_idx.shape
     V1 = state.prior_mean.shape[1] - 1
     f = state.prior_mean.dtype
     dev = state.device
+    part = profiling.part
 
+    part("exchange.tables", R, K, V1)
+    if params.ext_exchange == "receiver_compact":
+        tables = F.compact_snap_tables(state.snap_mu, state.snap_eta, state.snap_lam, dtype=f)
+    else:
+        tables = torch.cat(
+            [state.snap_mu[:, 1:], state.snap_eta[:, 1:], state.snap_lam[:, 1:].reshape(R, V1, 16)],
+            dim=-1,
+        )  # [R, V1, 24]
+
+    part("exchange.gather", R, K, V1)
     send_gate = state.active & state.antenna & _not_idle(state)
     gate_all = comm.all_robots(send_gate)
     src = _clip_idx(state.nbr_idx, gate_all.shape[0])
-    deliver = send_gate[:, None] & state.nbr_mask & gate_all[src] & state.nbr_has_back
+    width = tables.shape[-1]
+    tables_all = comm.all_robots(tables).reshape(-1, V1 * width)
+    peer = _gather_rows_pinned(tables_all, src).reshape(R, K, V1, width)
 
+    part("exchange.messages", R, K, V1)
     gids_j = src.to(f)
     back = state.nbr_back.to(f)
     iota_v = torch.arange(V1, dtype=f, device=dev)
@@ -693,19 +712,10 @@ def _external_factor_pass_receiver(
     seeded = state.ir_int_seeded      # mirror: the peer's cavity is present
     p_ext = state.ir_v2f_ext_pos      # mirror: my position as held by the peer
     if params.ext_exchange == "receiver_compact":
-        tables = F.compact_snap_tables(state.snap_mu, state.snap_eta, state.snap_lam, dtype=f)
-        tables_all = comm.all_robots(tables).reshape(-1, V1 * 8)
-        peer_tab = _gather_rows_pinned(tables_all, src).reshape(R, K, V1, 8)
         msg = F.interrobot_rank1_messages_compact(
-            peer_tab, seeded, p_ext, safety, tiny, params.sigma_factor_interrobot, dtype=f,
+            peer, seeded, p_ext, safety, tiny, params.sigma_factor_interrobot, dtype=f,
         )
     else:
-        pack = torch.cat(
-            [state.snap_mu[:, 1:], state.snap_eta[:, 1:], state.snap_lam[:, 1:].reshape(R, V1, 16)],
-            dim=-1,
-        )  # [R, V1, 24]
-        pack_all = comm.all_robots(pack).reshape(-1, V1 * 24)
-        peer = _gather_rows_pinned(pack_all, src).reshape(R, K, V1, 24)
         s3 = seeded[..., None]
         x_int = torch.where(s3, peer[..., 0:4], 0.0)
         cav_eta = torch.where(s3, peer[..., 4:8], 0.0)
@@ -713,11 +723,16 @@ def _external_factor_pass_receiver(
         msg = F.interrobot_rank1_messages(
             x_int, p_ext, cav_eta, cav_lam, safety, tiny, params.sigma_factor_interrobot, dtype=f,
         )
-    return replace(
+
+    part("exchange.deliver", R, K, V1)
+    deliver = send_gate[:, None] & state.nbr_mask & gate_all[src] & state.nbr_has_back
+    out = replace(
         state,
         ext_inbox=torch.where(deliver[..., None, None], msg, state.ext_inbox),
         iter_count_factor=state.iter_count_factor + send_gate.to(torch.int32),
     )
+    part(None)
+    return out
 
 
 def external_factor_pass(state: SimState, params: GbpParams, comm=LOCAL) -> SimState:

@@ -18,6 +18,11 @@ the mark reads the capture's current node and adds nothing to the graph.
 The capture's `StageMap` gives each stage's first device operation, in the
 order a replay runs them; `stage_device_ms` splits a profiled replay's
 device time by it. `newest_stage_map()` is the map of the newest capture.
+Below the stages, `part(name, *size)` marks where a part of a stage begins
+and the part before it ends (`part(None)` only ends it): the map keeps
+each part's operations, and the sizes it ran at, apart from the stages,
+and `part_device_ms` splits a replay by them. Outside a capture a part
+mark costs what a stage mark costs.
 
 The profiler helpers are used by chip_smoke.py and
 scripts/torch_tick_compare.py. This file imports nothing but torch at its
@@ -246,16 +251,30 @@ def annotate():
 # --------------------------------------------------------------------------
 
 @dataclasses.dataclass(frozen=True)
+class Part:
+    """A part of a stage in a captured CUDA graph: its device operations
+    `start` to `end` (not included), and the sizes it ran at."""
+
+    name: str
+    start: int
+    end: int
+    size: tuple[int, ...] = ()
+
+
+@dataclasses.dataclass(frozen=True)
 class StageMap:
     """The stages of a captured CUDA graph in the order a replay runs them:
     stage `names[i]` begins at device operation `starts[i]` (kernel, copy or
     fill, counted from 0) and ends where the next begins; `ops` counts the
     graph's nodes, each a device operation of a replay. A name recurs (each
-    tick's systems, each run of GBP slots of one kind)."""
+    tick's systems, each run of GBP slots of one kind). `parts`, the parts
+    marked inside the stages in the order they ran, is a second map, which
+    the split by stage does not read."""
 
     names: tuple[str, ...]
     starts: tuple[int, ...]
     ops: int
+    parts: tuple[Part, ...] = ()
 
 
 _recorder = None
@@ -269,14 +288,23 @@ def stage(name: str) -> None:
         _recorder.mark(name)
 
 
+def part(name: str | None, *size: int) -> None:
+    """Mark where part `name` of the open stage begins, ending the part
+    before it (`None` only ends it), with the sizes it runs at, in the
+    graph being captured under a `StageRecorder`; nothing elsewhere."""
+    if _recorder is not None:
+        _recorder.mark_part(name, size)
+
+
 def newest_stage_map() -> StageMap | None:
     """The map of the newest capture that recorded one."""
     return _newest_map
 
 
-def stage_map_of(names, starts, ops: int) -> StageMap:
+def stage_map_of(names, starts, ops: int, parts=()) -> StageMap:
     """The map of marks `names` at device operations `starts`: a mark at
-    the same operation as the next one is dropped (its stage ran none)."""
+    the same operation as the next one is dropped (its stage ran none).
+    `parts` are kept as they are."""
     kept_names, kept_starts = [], []
     for name, start in zip(names, starts):
         if kept_starts and kept_starts[-1] == start:
@@ -284,37 +312,65 @@ def stage_map_of(names, starts, ops: int) -> StageMap:
         else:
             kept_names.append(name)
             kept_starts.append(start)
-    return StageMap(tuple(kept_names), tuple(kept_starts), ops)
+    return StageMap(tuple(kept_names), tuple(kept_starts), ops, tuple(parts))
+
+
+def parts_of(marks, positions, ops: int) -> list[Part]:
+    """The parts between part marks `marks` [(name or None, size)] at
+    device operations `positions`: each named mark opens a part that the
+    next mark closes (the capture's end closes the last)."""
+    parts, open_ = [], None
+    for (name, size), at in zip(marks, positions):
+        if open_ is not None:
+            parts.append(dataclasses.replace(open_, end=at))
+        open_ = None if name is None else Part(name, at, ops, size)
+    if open_ is not None:
+        parts.append(open_)
+    return parts
 
 
 class StageRecorder:
-    """Records the stages marked (`stage`) while it is entered, inside a
-    CUDA graph capture, and sets `map` when the block ends without an
-    error, before the capture does. Marks of one name in a row make one
-    stage. At each new stage `tail()` reads the capture's current node (an
-    int, 0 before the first operation; None where the capture forked); at
-    the end `positions(tails)` gives each node's count of nodes up to it and
-    their total (None where the graph is not one chain). A
-    capture it cannot map gets no map and a warning. Without `tail` it
+    """Records the stages marked (`stage`) and their parts (`part`) while it
+    is entered, inside a CUDA graph capture, and sets `map` when the block
+    ends without an error, before the capture does. Marks of one name in a
+    row make one stage. At each new stage and at each part mark `tail()`
+    reads the capture's current node (an int, 0 before the first
+    operation; None where the capture forked); at the end `positions(tails)`,
+    given every node read in the order read, gives each node's count of
+    nodes up to it and their total (None where the graph is not one chain).
+    A capture it cannot map gets no map and a warning. Without `tail` it
     records nothing."""
 
     def __init__(self, tail=None, positions=None) -> None:
         self.tail, self.positions = tail, positions
         self.names: list[str] = []
+        self.parts: list[tuple] = []
+        #: every node read, the stages' and the parts' in the order read,
+        #: and whether each was a part's
         self.tails: list[int] = []
+        self.of_part: list[bool] = []
         self.failed: str | None = None
         self.map: StageMap | None = None
+
+    def _read(self, of_part: bool) -> bool:
+        node = self.tail()
+        if node is None:
+            self.failed = "the capture forked"
+            return False
+        self.tails.append(node)
+        self.of_part.append(of_part)
+        return True
 
     def mark(self, name: str) -> None:
         # a mark of the stage already open (the next of a run of internal
         # slots) continues it and reads nothing
         if self.failed is None and (not self.names or self.names[-1] != name):
-            node = self.tail()
-            if node is None:
-                self.failed = "the capture forked"
-            else:
+            if self._read(False):
                 self.names.append(name)
-                self.tails.append(node)
+
+    def mark_part(self, name: str | None, size: tuple) -> None:
+        if self.failed is None and self._read(True):
+            self.parts.append((name, size))
 
     def __enter__(self):
         global _recorder
@@ -332,7 +388,11 @@ class StageRecorder:
             warnings.warn(f"no stage map recorded: {self.failed or 'the graph is not one chain'}",
                           RuntimeWarning, stacklevel=2)
             return False
-        self.map = _newest_map = stage_map_of(self.names, *found)
+        positions, ops = found
+        starts = [at for at, of_part in zip(positions, self.of_part) if not of_part]
+        at_parts = [at for at, of_part in zip(positions, self.of_part) if of_part]
+        self.map = _newest_map = stage_map_of(self.names, starts, ops,
+                                              parts_of(self.parts, at_parts, ops))
         return False
 
 
@@ -409,15 +469,11 @@ def slots_in_place(ops, stages: StageMap, first: int = 0) -> bool:
     return seen
 
 
-def stage_device_ms(trace_ops, stages: StageMap, ticks: int) -> dict[str, float] | None:
-    """Device milliseconds a tick by stage name, from the device operations
-    of one profiled replay of the mapped graph (name, start ns, end ns, ...;
-    kernels, copies and fills). Operations queued before the graph's own
-    (`OUTSIDE_GRAPH`) are left out first. A profiler session may miss the
-    first operations a replay runs: the rest are then placed from the
-    replay's end, and kept only where every slot kernel falls in its slot's
-    stage (the missed ones count nothing). None where the operations do not
-    fit the map."""
+def _placed(trace_ops, stages: StageMap):
+    """(the operations of one profiled replay of the mapped graph in the
+    order they ran, the map's operation the first of them is), or None
+    where they do not fit the map (`stage_device_ms` says how they are
+    placed)."""
     ops = sorted(trace_ops, key=lambda op: op[1])
     extra = len(ops) - stages.ops
     first = max(0, -extra)
@@ -427,9 +483,47 @@ def stage_device_ms(trace_ops, stages: StageMap, ticks: int) -> dict[str, float]
         ops = ops[extra:]
     elif first and (first >= stages.ops or not slots_in_place(ops, stages, first)):
         return None
+    return ops, first
+
+
+def stage_device_ms(trace_ops, stages: StageMap, ticks: int) -> dict[str, float] | None:
+    """Device milliseconds a tick by stage name, from the device operations
+    of one profiled replay of the mapped graph (name, start ns, end ns, ...;
+    kernels, copies and fills). Operations queued before the graph's own
+    (`OUTSIDE_GRAPH`) are left out first. A profiler session may miss the
+    first operations a replay runs: the rest are then placed from the
+    replay's end, and kept only where every slot kernel falls in its slot's
+    stage (the missed ones count nothing). None where the operations do not
+    fit the map."""
+    placed = _placed(trace_ops, stages)
+    if placed is None:
+        return None
+    ops, first = placed
     out: dict[str, float] = {}
     ends = stages.starts[1:] + (stages.ops,)
     for name, a, b in zip(stages.names, stages.starts, ends):
         ns = sum(op[2] - op[1] for op in ops[max(0, a - first):max(0, b - first)])
         out[name] = out.get(name, 0.0) + ns / 1e6 / ticks
     return out
+
+
+def part_device_ms(trace_ops, stages: StageMap, ticks: int) -> dict[str, tuple] | None:
+    """(device ms, device operations, calls) a tick by part name, from the
+    operations of one profiled replay of the mapped graph, placed as
+    `stage_device_ms` places them; a part that begins in the operations the
+    profiler missed counts nothing. None where the operations do not fit
+    the map."""
+    placed = _placed(trace_ops, stages)
+    if placed is None:
+        return None
+    ops, first = placed
+    out: dict[str, list] = {}
+    for p in stages.parts:
+        if p.start >= first:
+            ns = sum(op[2] - op[1] for op in ops[p.start - first:p.end - first])
+            total = out.setdefault(p.name, [0, 0, 0])
+            total[0] += ns
+            total[1] += p.end - p.start
+            total[2] += 1
+    return {name: (ns / 1e6 / ticks, n / ticks, calls / ticks)
+            for name, (ns, n, calls) in out.items()}

@@ -2,9 +2,11 @@
 can hold them: span totals and nesting, intervals kept only while a
 torch.profiler session runs, profiler ranges only under `annotate()`, the
 stage marks of a tick in the order the chain runs them, the stage map's
-arithmetic, and the Simulator's spans. The stage map of a real capture,
-and the spans against the card's clock, are held on the card
-(benchmark/tests/test_bench_program_cuda.py)."""
+arithmetic, the parts the receiver exchanges mark below their stage, and
+the Simulator's spans. The stage map of a real capture, and the spans
+against the card's clock, are held on the card
+(benchmark/tests/test_bench_program_cuda.py,
+benchmark/tests/test_bench_compact_exchange_cuda.py)."""
 
 from __future__ import annotations
 
@@ -216,6 +218,98 @@ def test_a_replay_that_lost_its_first_operations_is_placed_from_its_end():
     # lost at the end instead: the slot kernels land a stage early
     assert not P.slots_in_place(ops[:-2], stages, 2)
     assert P.stage_device_ms(ops[:-2], stages, 1) is None
+
+
+# ---------------------------------------------------------------- parts
+
+EXCHANGE = ["exchange.tables", "exchange.gather", "exchange.messages", "exchange.deliver"]
+
+
+def test_parts_run_from_mark_to_mark():
+    marks = [("a", (1, 2)), ("b", ()), (None, ()), ("c", (3,))]
+    assert P.parts_of(marks, [2, 5, 7, 9], 12) == [
+        P.Part("a", 2, 5, (1, 2)), P.Part("b", 5, 7), P.Part("c", 9, 12, (3,))]
+    assert P.parts_of([], [], 4) == []
+
+
+def test_recorder_keeps_parts_apart_from_the_stages(monkeypatch):
+    monkeypatch.setattr(P, "_newest_map", None)
+    counter = _Counter()
+    P.part("outside")
+    with P.StageRecorder(counter.tail, counter.positions) as rec:
+        P.stage("one")
+        P.part("p", 4, 5)
+        P.part("q")
+        P.stage("two")
+        P.part(None)
+        P.stage("two")
+    assert rec.map == P.StageMap(("one", "two"), (10, 40), 53,
+                                 (P.Part("p", 20, 30, (4, 5)), P.Part("q", 30, 50)))
+    assert counter.n == 5
+    with P.StageRecorder() as off:
+        P.part("unrecorded")
+    assert off.map is None and P.newest_stage_map() is rec.map
+
+
+def test_a_part_mark_where_the_capture_forks_keeps_no_map(monkeypatch):
+    monkeypatch.setattr(P, "_newest_map", None)
+    with pytest.warns(RuntimeWarning, match="forked"):
+        with P.StageRecorder(lambda: None, lambda tails: ([], 0)) as rec:
+            P.part("p")
+    assert rec.map is None and P._recorder is None
+
+
+def _tick_map(exchange, hot, monkeypatch):
+    params, state, sdf = _scenario(use_pallas=hot, internal=5, external=2, ext_exchange=exchange)
+    monkeypatch.setattr(P, "_newest_map", None)
+    counter = _Counter()
+    with P.StageRecorder(counter.tail, counter.positions) as rec:
+        TT.step(state, sdf, params)
+    return rec.map, state
+
+
+@pytest.mark.parametrize("hot", [False, True], ids=["plain", "hot"])
+@pytest.mark.parametrize("exchange", ["receiver_compact", "receiver"])
+def test_the_receiver_exchange_marks_its_parts_inside_each_external_slot(
+        monkeypatch, exchange, hot):
+    stages, state = _tick_map(exchange, hot, monkeypatch)
+    sender, _ = _tick_map("sender", hot, monkeypatch)
+    # the same stages as the sender's tick, the parts a map of their own
+    assert stages.names == sender.names and sender.parts == ()
+    assert [p.name for p in stages.parts] == EXCHANGE * 2
+    R, K = state.nbr_idx.shape
+    V1 = state.prior_mean.shape[1] - 1
+    ends = stages.starts[1:] + (stages.ops,)
+    external = [(a, b) for name, a, b in zip(stages.names, stages.starts, ends)
+                if name == "gbp.external"]
+    assert len(external) == 2
+    for i, (a, b) in enumerate(external):
+        slot = stages.parts[4 * i:4 * i + 4]
+        assert a <= slot[0].start and slot[-1].end <= b
+        assert all(p.end == q.start for p, q in zip(slot, slot[1:]))
+        assert all(p.size == (R, K, V1) and p.start < p.end for p in slot)
+
+
+def test_part_device_ms_splits_a_replay_by_part():
+    parts = (P.Part("x", 1, 3), P.Part("y", 3, 4), P.Part("x", 5, 7))
+    stages = P.StageMap(("a", "gbp.external"), (0, 1), 8, parts)
+    ops = _ops([(f"k{i}", 1_000_000 * (i + 1)) for i in range(8)])
+    assert P.part_device_ms(ops, stages, 2) == {"x": ((2 + 3 + 6 + 7) / 2, 2.0, 1.0),
+                                                "y": (4 / 2, 0.5, 0.5)}
+    # the split by stage reads no part
+    assert P.stage_device_ms(ops, stages, 2) == P.stage_device_ms(
+        ops, P.StageMap(stages.names, stages.starts, 8), 2)
+    # a replay of another graph fits no map
+    assert P.part_device_ms(ops[:3] + _ops([("other", 5)]), stages, 2) is None
+
+
+def test_a_part_the_profiler_missed_counts_nothing():
+    parts = (P.Part("x", 1, 3), P.Part("x", 5, 7))
+    stages = P.StageMap(("a", "gbp.internal", "gbp.external"), (0, 1, 4), 8, parts)
+    names = ["k0", "k1", "k2", "k3", "variable_slot_kernel<8>", "k5", "k6", "k7"]
+    ops = _ops([(n, 1_000_000) for n in names])
+    assert P.part_device_ms(ops, stages, 1) == {"x": (4.0, 4.0, 2.0)}
+    assert P.part_device_ms(ops[2:], stages, 1) == {"x": (2.0, 2.0, 1.0)}
 
 
 def _small_circle():
