@@ -18,8 +18,12 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    moved into range. The row gather, bit for bit, at its four call sites'
    shapes. The external sums (kernels/ext_sum.py), bit for bit below 64
    slots, on the bench state's inbox and on seeded inboxes at the bench,
-   swarm (R=16384, K=24) and Circle (R=50, K=49) shapes, each timed.
-   Prints errors, flips, CUDA-event times of both, each kernel's
+   swarm (R=16384, K=24) and Circle (R=50, K=49) shapes, each timed. The
+   compact exchange's two kernels (K5, kernels/compact_exchange.py), bit
+   for bit, on the bench state under "receiver_compact" and on seeded
+   inputs at the bench (gates on, off and mixed), a ragged R=1021, the
+   Circle's and the swarm's shapes, each kernel timed on the bench state
+   against its bound from benchmark/exchange_work.py. Prints errors, flips, CUDA-event times of both, each kernel's
    device time per launch (torch.profiler; for the variable slot, the
    message table and the row gather also with L2 flushed before each
    launch) and its bound, and for the row gather `index_select`'s call and
@@ -36,7 +40,8 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    line in bench.py's format for each, then cudaLaunchKernel calls and
    device time per tick from a 2-tick profile. After the sender slice, the
    message table against its plain version once more, on the slice's own
-   final state (live factors, some cavities unseeded).
+   final state (live factors, some cavities unseeded); after the
+   receiver_compact slice, K5 likewise.
 
 6. Graph vs eager: after each slice, 10-tick chunks of its workload
    captured as one CUDA graph (graph/chunk.py:compile_ticks) from the
@@ -54,13 +59,15 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    "receiver_compact" and then "sender", through compile_ticks: capture
    seconds, 1 warm and 3 timed chunks of 10 ticks; asserts finite state,
    motion, no overflow, live connectivity, the capture's launches per tick
-   (10 / 10 / 10 / 20 / 11 and 10 / 10 / 0 / 10 / 11) and 10 eager ticks
+   (K1 / K2 / K3 / K4 / the external sums / K5's two kernels: 10 / 10 / 0 /
+   0 / 11 / 10 / 10 and 10 / 10 / 10 / 20 / 11 / 0 / 0) and 10 eager ticks
    bit-equal to one replay; prints scale.py's line, a metric line, the state's bytes
    and the peak memory, each kernel's launches per tick (the capture's
    count), its device us per launch (torch.profiler of one replay where it
    records the kernel, else of one eager tick, named in `device_us_of`)
    and its bound at these shapes, one eager tick's time by phase, and
-   checks each kernel against its plain version at these shapes.
+   checks each kernel against its plain version at these shapes (K5 bit
+   for bit on the receiver_compact state).
 9. The Simulator shell (sim/simulator.py), on scenarios built in memory
    (TOML text, formation dicts, builtin or empty environments; no file, no
    YAML): (a) the Circle Experiment, 50 robots (K=49, V=21, 50 + 10 slots)
@@ -100,8 +107,7 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    magics_tpu_torch.parallel.launch --backend gloo` sharing one card (NCCL
    takes a card per rank), each with R_SCALE / 2 robots of the scale workload,
    5 eager ticks under "sender" and then "receiver_compact": each rank
-   asserts its kernel launches a tick (10 / 10 / 10 / 20 / 11 and 10 / 10 /
-   0 / 10 / 11) and prints its ms/tick, its collective bytes a tick by call site
+   asserts its kernel launches a tick (phase 8's) and prints its ms/tick, its collective bytes a tick by call site
    beside the exchange's traffic model (which must match exactly) and its
    kernels' device us per launch (rank 0's torch.profiler); the ranks agree
    on a checksum, and rank 0's gathered state is held to 5 one-process
@@ -154,6 +160,8 @@ SOURCE = {
     "interrobot_slot": "magics_tpu_torch/kernels/csrc/ir_slot.cu",
     "gather_rows": "magics_tpu_torch/kernels/csrc/layout.cu",
     "ext_sum": "magics_tpu_torch/kernels/csrc/ext_sum.cu",
+    "compact_table": "magics_tpu_torch/kernels/csrc/compact_exchange.cu",
+    "compact_message": "magics_tpu_torch/kernels/csrc/compact_exchange.cu",
 }
 REPLACES = {
     "internal_slot": "magics_tpu/kernels/gbp_slot.py:838",
@@ -162,28 +170,36 @@ REPLACES = {
     "gather_rows": "magics_tpu/kernels/layout.py:31",
     # no TPU kernel: the JAX package's external sums are XLA
     "ext_sum": "none (XLA: magics_tpu/kernels/hot.py:152 _ext_sum_hot)",
+    # nor for the compact exchange's (K5)
+    "compact_table": "none (XLA: magics_tpu/graph/factors.py:397 compact_snap_tables)",
+    "compact_message": "none (XLA: magics_tpu/graph/factors.py:434, :505 "
+                       "interrobot_rank1_messages_compact)",
 }
 # Kernel launches per tick of the bench workload (50 internal + 10 external
 # slots). Under "sender" each external slot makes one message table, one
 # delivery gather of the peers' outboxes and one response gather; under
-# "receiver_compact" one gather of the peers' compact tables. Under both the
-# external sums run once before the schedule and once per external slot.
+# "receiver_compact" one compact table and one compact message kernel (K5).
+# Under both the external sums run once before the schedule and once per
+# external slot.
 LAUNCHES_PER_TICK = {
     "sender": {"internal_slot": 50, "variable_slot": 10, "interrobot_slot": 10,
-               "gather_rows": 20, "ext_sum": 11},
+               "gather_rows": 20, "ext_sum": 11, "compact_table": 0, "compact_message": 0},
     "receiver_compact": {"internal_slot": 50, "variable_slot": 10, "interrobot_slot": 0,
-                         "gather_rows": 10, "ext_sum": 11},
+                         "gather_rows": 0, "ext_sum": 11, "compact_table": 10,
+                         "compact_message": 10},
 }
 # The same for the scale workload (10 internal + 10 external slots).
 SCALE_LAUNCHES_PER_TICK = {
     "sender": {"internal_slot": 10, "variable_slot": 10, "interrobot_slot": 10,
-               "gather_rows": 20, "ext_sum": 11},
+               "gather_rows": 20, "ext_sum": 11, "compact_table": 0, "compact_message": 0},
     "receiver_compact": {"internal_slot": 10, "variable_slot": 10, "interrobot_slot": 0,
-                         "gather_rows": 10, "ext_sum": 11},
+                         "gather_rows": 0, "ext_sum": 11, "compact_table": 10,
+                         "compact_message": 10},
 }
 KERNEL_NAMES = {"internal_slot": "internal_slot_kernel", "variable_slot": "variable_slot_kernel",
                 "interrobot_slot": "interrobot_slot_kernel", "gather_rows": "gather_rows_kernel",
-                "ext_sum": "ext_sum_kernel"}
+                "ext_sum": "ext_sum_kernel", "compact_table": "compact_table_kernel",
+                "compact_message": "compact_message_kernel"}
 # The H100 SXM's published peaks (NVIDIA's data sheet, at its 700 W limit):
 # HBM bandwidth and float32 outside the tensor cores. A kernel's bound is the
 # larger of its bytes over the first and its operations over the second,
@@ -255,11 +271,11 @@ def device_phase(torch) -> None:
 
 def build_phase() -> None:
     from magics_tpu_torch.kernels import build
-    from magics_tpu_torch.kernels import ext_sum, gbp_slot, ir_slot, layout
+    from magics_tpu_torch.kernels import compact_exchange, ext_sum, gbp_slot, ir_slot, layout
 
     t0 = time.perf_counter()
     build.build_all()   # one nvcc per source, all at once
-    for module in (gbp_slot, ir_slot, layout, ext_sum):
+    for module in (gbp_slot, ir_slot, layout, ext_sum, compact_exchange):
         module._lib()
     log(f"[build] {', '.join(build.SOURCES)} built and loaded in "
         f"{time.perf_counter() - t0:.2f} s")
@@ -611,6 +627,10 @@ def kernel_phase(torch, device) -> dict:
     results["interrobot_slot"] = interrobot_check(torch, state, params, "synthetic")
     results["gather_rows"] = gather_check(torch, state)
     results["ext_sum"] = ext_sum_check(torch, state.ext_inbox)
+
+    params, state, sdf = bench_scenario("receiver_compact")
+    state = T.run_ticks(state, sdf, params, 3)
+    results.update(compact_check(torch, state, params))
     return results
 
 
@@ -807,6 +827,173 @@ def ext_sum_check(torch, inbox) -> dict:
     return {"max_abs_err": err, **shapes["bench"],
             "shapes": {name: {k: v for k, v in t.items() if k != "bound_by"}
                        for name, t in shapes.items()}}
+
+
+# The compact exchange's shapes checked in kernel_phase, (R, K, V): the bench
+# workload, a ragged R, the Circle Experiment's K=49 (R=50) and the swarm's
+# (bench/scale.py)
+COMPACT_SHAPES = {"bench": (R_BENCH, 32, 21), "ragged": (1021, 32, 21), "circle": (50, 49, 21),
+                  "swarm": (R_SCALE, 24, 21)}
+
+
+def compact_inputs(torch, R: int, K: int, V: int, seed: int = 0, gates: str = "mixed",
+                   device="cuda", dtype=None) -> tuple:
+    """Seeded inputs of the compact exchange (kernels/compact_exchange.py)
+    at (R, K, V), made on the CPU in float64 and moved to `device` in
+    `dtype` (float32 unless given), as
+    (the tables' arguments, the messages' other arguments). The snapshot
+    precisions mix healthy, 1e30-pinned (the horizon), broad (negligible
+    messages), zero (singular), rank-deficient, inf and NaN cavities; the
+    gates are all on, all off or mixed; a tenth of the slots empty (index
+    -1), some live slots not reciprocal, a fifth of the mirrors unseeded;
+    each mirrored position within a few metres of the peer's snapshot, so
+    some factors lie within the safety distance and some are skipped; the
+    old inbox random."""
+    g = torch.Generator().manual_seed(seed)
+    f64 = torch.float64
+    V1 = V - 1
+
+    def rand(*shape):
+        return torch.rand(shape, generator=g, dtype=f64)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, dtype=f64)
+
+    snap_mu = 20.0 * randn(R, V, 4)
+    snap_eta = randn(R, V, 4)
+    a = randn(R, V, 4, 4)
+    scale = torch.where(rand(R, 1) < 0.2, 1e-3, 3.0)[..., None, None]
+    snap_lam = scale * (a @ a.transpose(-1, -2)) + 0.01 * torch.eye(4, dtype=f64)
+    snap_lam[:, -1] += 1e30 * torch.eye(4, dtype=f64)
+    kind = rand(R, V)
+    snap_lam[kind < 0.06] = 0.0
+    dup = (kind >= 0.06) & (kind < 0.09)
+    snap_lam[dup, 1] = snap_lam[dup, 0]
+    snap_lam[(kind >= 0.09) & (kind < 0.11), 2, 2] = float("inf")
+    snap_lam[(kind >= 0.11) & (kind < 0.13), 0, 3] = float("nan")
+
+    if gates == "mixed":
+        flags = [rand(R) < p for p in (0.9, 0.9, 0.7, 0.2)]
+    else:
+        flags = [torch.full((R,), gates == "on")] * 4
+    count = torch.randint(0, 1000, (R,), generator=g, dtype=torch.int32)
+
+    nbr_idx = torch.randint(0, R, (R, K), generator=g, dtype=torch.int32)
+    nbr_idx[rand(R, K) < 0.1] = -1
+    nbr_back = torch.randint(0, K, (R, K), generator=g, dtype=torch.int32)
+    nbr_mask = (nbr_idx >= 0) & (rand(R, K) < 0.95)
+    has_back = nbr_mask & (rand(R, K) < 0.9)
+    seeded = rand(R, K, V1) < 0.8
+    src = nbr_idx.clamp(min=0).long()
+    p_ext = snap_mu[src, 1:, :2] + 3.0 * randn(R, K, V1, 2)
+    radius = 2.0 + 0.5 * rand(R)
+    inbox = randn(R, K, V1, 4)
+
+    def dev(x):
+        return x.to(device, (dtype or torch.float32) if x.is_floating_point() else x.dtype)
+
+    tables = tuple(dev(x) for x in (snap_mu, snap_eta, snap_lam, *flags, count))
+    messages = {"radius_all": dev(radius), "nbr_idx": dev(nbr_idx), "nbr_back": dev(nbr_back),
+                "nbr_mask": dev(nbr_mask), "nbr_has_back": dev(has_back),
+                "seeded": dev(seeded), "p_ext": dev(p_ext), "ext_inbox": dev(inbox),
+                "safety_multiplier": 2.2, "sigma": 0.01}
+    return tables, messages
+
+
+def compact_state_inputs(state, params) -> tuple:
+    """The compact exchange's arguments at `state`, as the tick hands them
+    to the kernels (compact_inputs' form)."""
+    tables = (state.snap_mu, state.snap_eta, state.snap_lam, state.active, state.antenna,
+              state.mission_active, state.completed, state.iter_count_factor)
+    messages = {"radius_all": state.radius, "nbr_idx": state.nbr_idx,
+                "nbr_back": state.nbr_back, "nbr_mask": state.nbr_mask,
+                "nbr_has_back": state.nbr_has_back, "seeded": state.ir_int_seeded,
+                "p_ext": state.ir_v2f_ext_pos, "ext_inbox": state.ext_inbox,
+                "safety_multiplier": params.safety_distance_multiplier,
+                "sigma": params.sigma_factor_interrobot}
+    return tables, messages
+
+
+def compact_calls(tables: tuple, messages: dict) -> dict:
+    """{kernel: (the wrapper's call, its plain version's call)} of the
+    compact exchange on these inputs; the messages read the plain tables
+    and gates."""
+    from magics_tpu_torch.kernels import compact_exchange as CX
+
+    tab, gate, _ = CX.compact_tables_reference(*tables)
+    kw = dict(tables_all=tab, gate=gate, gate_all=gate, **messages)
+    return {"compact_table": (lambda: CX.compact_tables(*tables),
+                              lambda: CX.compact_tables_reference(*tables)),
+            "compact_message": (lambda: CX.compact_messages(**kw),
+                                lambda: CX.compact_messages_reference(**kw))}
+
+
+def compact_compare(torch, tables: tuple, messages: dict, label: str) -> dict:
+    """Both compact-exchange kernels against their plain versions on these
+    inputs, every output bit for bit (NaN included), the fresh inbox
+    allocated over NaN-filled memory (so a row the kernel missed shows).
+    Raises on any difference; returns the counts of the inputs' cases."""
+    calls = compact_calls(tables, messages)
+    got_t, want_t = (fn() for fn in calls["compact_table"])
+    inbox = messages["ext_inbox"]
+    junk = torch.full_like(inbox, float("nan"))   # its block is the next empty_like's
+    del junk
+    got_m, want_m = (fn() for fn in calls["compact_message"])
+    torch.cuda.synchronize()
+    bad = [name for name, g, w in zip(("tables", "gate", "count", "inbox"),
+                                      (*got_t, got_m), (*want_t, want_m))
+           if not bits_equal(torch, g, w)]
+    if bad:
+        raise AssertionError(f"compact exchange {label}: {bad} differ from the plain version")
+    tab, gate, _ = want_t
+    src = messages["nbr_idx"].clamp(0, tab.shape[0] - 1).long()
+    deliver = (gate[:, None] & messages["nbr_mask"] & gate[src] & messages["nbr_has_back"])
+    live = (want_m[..., 3] != 0) & deliver[..., None]
+    out = {"valid_tables": float(tab[..., 7].mean()), "gates_on": int(gate.sum()),
+           "delivered_slots": int(deliver.sum()), "live_messages": int(live.sum())}
+    log(f"[kernels] compact exchange {label} (R={gate.shape[0]}, K={src.shape[1]}, "
+        f"V={tab.shape[1] + 1}): tables, gates, counter and inbox bit-equal to the plain "
+        f"version; {out}")
+    return out
+
+
+def compact_work(messages: dict, delivered: int) -> dict:
+    """{kernel: (bytes, operations)} of each compact-exchange kernel at these
+    inputs with `delivered` (robot, slot) pairs delivered to, from the least
+    work of one slot's exchange (benchmark/exchange_work.py): the table
+    kernel's share (per robot, per robot and variable), the message
+    kernel's (per slot, per delivered slot and variable)."""
+    from benchmark import exchange_work as W
+
+    R, K, V1 = messages["seeded"].shape
+    return {"compact_table": (R * (W.PER_ROBOT + V1 * W.PER_ROBOT_VARIABLE), R * V1 * W.TABLE_OPS),
+            "compact_message": (R * K * W.PER_SLOT + delivered * V1 * W.PER_DELIVERED_VARIABLE,
+                                delivered * V1 * W.MESSAGE_OPS)}
+
+
+def compact_check(torch, state, params) -> dict:
+    """The compact exchange (K5) against its plain version bit for bit on
+    `state` (the bench workload under "receiver_compact") and on seeded
+    inputs at COMPACT_SHAPES (at the bench shape with the gates on, off and
+    mixed), then each kernel timed on `state`'s inputs, warm and with L2
+    flushed before each launch, against its bound (compact_work).
+    Returns {kernel: results}; `device_us` is the warm time: on the main
+    path the table kernel reads the snapshot just written and the message
+    kernel the tables."""
+    tables, messages = compact_state_inputs(state, params)
+    counts = compact_compare(torch, tables, messages, "bench state")
+    for name, (R, K, V) in COMPACT_SHAPES.items():
+        for gates in (("on", "off", "mixed") if name == "bench" else ("mixed",)):
+            compact_compare(torch, *compact_inputs(torch, R, K, V, seed=R + K, gates=gates),
+                            f"{name}, gates {gates}")
+    work = compact_work(messages, counts["delivered_slots"])
+    out = {}
+    for kernel, (call, plain) in compact_calls(tables, messages).items():
+        t = timed(torch, f"{kernel} bench state ({counts['delivered_slots']} delivered slots)",
+                  call, plain, f"{kernel}_kernel", *work[kernel], cold=True)
+        t["device_us"] = t["device_us_warm"]
+        out[kernel] = {"max_abs_err": 0.0, **t}
+    return out
 
 
 def small_input_phase(torch, device) -> None:
@@ -1065,6 +1252,11 @@ def scale_bounds(torch, state, params, sdf, exchange: str) -> dict:
     ext_sum_compare(torch, seeded_inbox(torch, R, K, V1), f"R={R} seeded")
     out["ext_sum"] = bound(nbytes([inbox]) + 80 * R * (V1 + 1),
                            OPS_PER_ITEM["ext_sum"] * R * K * V1)
+    if exchange == "receiver_compact":
+        tables, messages = compact_state_inputs(state, params)
+        counts = compact_compare(torch, tables, messages, f"R={R} state")
+        out.update({k: bound(*w)
+                    for k, w in compact_work(messages, counts["delivered_slots"]).items()})
     if exchange == "sender":
         # the bound of the main path's own inputs: nothing in range yet
         inputs = IR.sender_inputs(state, params)
@@ -1440,7 +1632,7 @@ def circle_phase(torch) -> dict:
     capture_s = sum(s for _, s in sim.stats.captures)
     if per_tick != {k: float(v) for k, v in LAUNCHES_PER_TICK["sender"].items()}:
         raise AssertionError(f"(a): capture launches per tick {per_tick}")
-    if not all(launches.values()):
+    if not all(launches[k] for k, n in LAUNCHES_PER_TICK["sender"].items() if n):
         raise AssertionError(f"(a): a kernel of the Simulator's path never launched: {launches}")
     if (result["completed"] != len(sim.specs) or result["makespan"] >= 60.0
             or result["nbr_overflow"] != 0):
@@ -1789,7 +1981,7 @@ def cli_run_phase(torch, circle_dir, tmpdir, circle: dict) -> dict:
     per_tick = {k: v / SURFACE_CHUNK for k, v in graph.launches.items()}
     if per_tick != {k: float(v) for k, v in LAUNCHES_PER_TICK["sender"].items()}:
         raise AssertionError(f"(b): capture launches per tick {per_tick}")
-    if not all(launches.values()):
+    if not all(launches[k] for k, n in LAUNCHES_PER_TICK["sender"].items() if n):
         raise AssertionError(f"(b): a kernel never launched in the CLI's run: {launches}")
     export = json.loads(out["json"].read_text())
     want = json.loads(json.dumps(circle["export"]))
@@ -2211,7 +2403,8 @@ def shard_phase(torch) -> dict:
 
 # The parity cases' slots, 10 internal + 10 external a tick under "sender"
 PARITY_LAUNCHES_PER_TICK = {"internal_slot": 10, "variable_slot": 10, "interrobot_slot": 10,
-                            "gather_rows": 20, "ext_sum": 11}
+                            "gather_rows": 20, "ext_sum": 11, "compact_table": 0,
+                            "compact_message": 0}
 # The lanes case in float64 on the card's plain passes against the oracle:
 # roundoff only (over its 80 ticks 4.6e-11 m for the port's tick and 4.8e-11
 # for the JAX tick, both on the CPU), so 1e-6 m leaves four orders for
@@ -2346,7 +2539,7 @@ def experiment_phase(torch, tmpdir) -> dict:
     summary = json.loads((out_dir / "summary.json").read_text())
     if code != 0 or len(rows) != 4 or [r["robots"] for r in summary] != [10, 10, 50, 50]:
         raise AssertionError(f"(b) the sweep: exit {code}, rows {summary}")
-    if not all(launches.values()):
+    if not all(launches[k] for k, n in LAUNCHES_PER_TICK["sender"].items() if n):
         raise AssertionError(f"(b) a kernel never launched in the sweep: {launches}")
     capture_s = sum(done.times["capture_s"] for done, _ in rows)
     log(f"[experiments] (b) run_experiment.main '{circle_dir.name}' {' '.join(SWEEP)}: "
@@ -2438,7 +2631,8 @@ def main() -> int:
     build_phase()
     kernels = kernel_phase(torch, device)
     small_input_phase(torch, device)
-    # the sender slice runs every kernel; its counts go in the kernels line
+    # the sender slice runs every kernel but K5, the receiver_compact slice
+    # K5; both slices' counts go in the kernels line
     launches, state, params, sdf, eager_ms = slice_phase(torch, "sender")
     # K3 once more, on the inputs the main path gives it after 100 ticks
     # (live factors); after the counts were read, so it adds no launch. Its
@@ -2451,7 +2645,9 @@ def main() -> int:
     }
     sender_graph_ms = graph_phase(torch, "sender", state, params, sdf, eager_ms)
     del state
-    _, state, params, sdf, eager_ms = slice_phase(torch, "receiver_compact")
+    compact_launches, state, params, sdf, eager_ms = slice_phase(torch, "receiver_compact")
+    # K5 once more, on the inputs the main path gives it after 100 ticks
+    compact_compare(torch, *compact_state_inputs(state, params), "slice after 100 ticks")
     graph_phase(torch, "receiver_compact", state, params, sdf, eager_ms)
     del state
     grid_dense_phase(torch)
@@ -2469,6 +2665,7 @@ def main() -> int:
                 "source": SOURCE[name],
                 "replaces": REPLACES[name],
                 "launches": launches[name],
+                "launches_receiver_compact": compact_launches[name],
                 "max_abs_err": kernels[name]["max_abs_err"],
                 "ms": kernels[name]["ms"],
                 "plain_ms": kernels[name]["plain_ms"],

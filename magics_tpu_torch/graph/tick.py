@@ -44,6 +44,7 @@ from magics_tpu_torch.graph import factors as F
 from magics_tpu_torch.graph import grid as G
 from magics_tpu_torch.graph import variables as VU
 from magics_tpu_torch.graph.state import GbpParams, SimState
+from magics_tpu_torch.kernels import compact_exchange as CX
 from magics_tpu_torch.kernels import ir_slot as IR
 from magics_tpu_torch.kernels.layout import gather_rows
 from magics_tpu_torch.parallel.comm import LOCAL
@@ -673,14 +674,18 @@ def _external_factor_pass_receiver(
     inboxes); "receiver_compact" gathers the compact cavity tables
     [R, V-1, 8] (Sherman-Morrison, equal to roundoff).
 
+    Where `params.uses_kernels` holds, "receiver_compact" runs as two
+    kernels (kernels/compact_exchange.py), `_compact_exchange_kernels`.
+
     Its four parts are marked for a captured graph's map (`profiling.part`,
     each with its sizes R, K, V-1): `exchange.tables` (each robot's table),
     `exchange.gather` (the gates and the peers' rows), `exchange.messages`
     and `exchange.deliver` (the inbox and the counter)."""
+    if params.ext_exchange == "receiver_compact" and params.uses_kernels(state.device):
+        return _compact_exchange_kernels(state, params, comm)
     R, K = state.nbr_idx.shape
     V1 = state.prior_mean.shape[1] - 1
     f = state.prior_mean.dtype
-    dev = state.device
     part = profiling.part
 
     part("exchange.tables", R, K, V1)
@@ -701,13 +706,8 @@ def _external_factor_pass_receiver(
     peer = _gather_rows_pinned(tables_all, src).reshape(R, K, V1, width)
 
     part("exchange.messages", R, K, V1)
-    gids_j = src.to(f)
-    back = state.nbr_back.to(f)
-    iota_v = torch.arange(V1, dtype=f, device=dev)
-    tiny = 1e-6 * (gids_j[..., None] * (K * V1) + back[..., None] * V1 + iota_v + 1.0)
-
-    rad_all = comm.all_robots(state.radius)
-    safety = (params.safety_distance_multiplier * rad_all[src])[..., None].expand(R, K, V1)
+    tiny, safety = CX.receiver_terms(src, state.nbr_back, comm.all_robots(state.radius),
+                                     params.safety_distance_multiplier, V1)
 
     seeded = state.ir_int_seeded      # mirror: the peer's cavity is present
     p_ext = state.ir_v2f_ext_pos      # mirror: my position as held by the peer
@@ -731,6 +731,39 @@ def _external_factor_pass_receiver(
         ext_inbox=torch.where(deliver[..., None, None], msg, state.ext_inbox),
         iter_count_factor=state.iter_count_factor + send_gate.to(torch.int32),
     )
+    part(None)
+    return out
+
+
+def _compact_exchange_kernels(state: SimState, params: GbpParams, comm=LOCAL) -> SimState:
+    """"receiver_compact" on the kernels' path, under the same four parts:
+    `compact_table_kernel` (the tables, the send gates and the counter) in
+    `exchange.tables`, the collectives of a `ShardComm` (none on one
+    process) in `exchange.gather`, `compact_message_kernel` (the fresh
+    inbox, reading the peers' table rows itself) in `exchange.messages`;
+    `exchange.deliver` runs nothing."""
+    R, K = state.nbr_idx.shape
+    V1 = state.prior_mean.shape[1] - 1
+    part = profiling.part
+
+    part("exchange.tables", R, K, V1)
+    tables, send_gate, count = CX.compact_tables(
+        state.snap_mu, state.snap_eta, state.snap_lam, state.active, state.antenna,
+        state.mission_active, state.completed, state.iter_count_factor)
+
+    part("exchange.gather", R, K, V1)
+    tables_all = comm.all_robots(tables)
+    gate_all = comm.all_robots(send_gate)
+    rad_all = comm.all_robots(state.radius)
+
+    part("exchange.messages", R, K, V1)
+    inbox = CX.compact_messages(
+        tables_all, send_gate, gate_all, rad_all, state.nbr_idx, state.nbr_back,
+        state.nbr_mask, state.nbr_has_back, state.ir_int_seeded, state.ir_v2f_ext_pos,
+        state.ext_inbox, params.safety_distance_multiplier, params.sigma_factor_interrobot)
+
+    part("exchange.deliver", R, K, V1)
+    out = replace(state, ext_inbox=inbox, iter_count_factor=count)
     part(None)
     return out
 
@@ -814,7 +847,10 @@ def deliver_responses(
     "sender" the factor (r, k) receives j = nbr_idx[r, k]'s positions, one
     row gather (K4) of the same positions for every reciprocal slot; under
     the receiver exchanges the mirror of what the peer holds becomes MY
-    positions, with no gather."""
+    positions, with no gather. The mirror comes out contiguous, as the
+    compact exchange's kernels read it, whatever the layout of `own_pos`
+    (in the hot loop a view of the robots-last planes, whose strides would
+    otherwise set the `where`'s output layout)."""
     gate_all = comm.all_robots(gate)
     src = _clip_idx(state.nbr_idx, gate_all.shape[0])
     deliver = gate[:, None] & state.nbr_mask & gate_all[src] & state.nbr_has_back
@@ -822,7 +858,8 @@ def deliver_responses(
         in_pos = own_pos[:, None]
     else:
         in_pos = _gather_rows_pinned(comm.all_robots(own_pos), src, state.nbr_mask)
-    return torch.where(deliver[..., None, None], in_pos, state.ir_v2f_ext_pos)
+    out = torch.empty_like(state.ir_v2f_ext_pos, memory_format=torch.contiguous_format)
+    return torch.where(deliver[..., None, None], in_pos, state.ir_v2f_ext_pos, out=out)
 
 
 def iterate_gbp(state: SimState, sdf: torch.Tensor, params: GbpParams, comm=LOCAL) -> SimState:

@@ -25,7 +25,7 @@ BUILD_DIR = Path(__file__).resolve().parent / "_build"
 
 #: the libraries, one per csrc/<name>.cu: the kernels, and graph_nodes
 #: (host code that reads a graph under capture, for profiling's stage maps)
-SOURCES = ("gbp_slot", "ir_slot", "layout", "ext_sum", "graph_nodes")
+SOURCES = ("gbp_slot", "ir_slot", "layout", "ext_sum", "compact_exchange", "graph_nodes")
 
 # --fmad=false: see the rounding note at the top of csrc/gbp_slot.cu.
 NVCC_FLAGS = (

@@ -59,7 +59,8 @@ TIMEOUT_S = 300.0
 
 KERNEL_NAMES = {"internal_slot": "internal_slot_kernel", "variable_slot": "variable_slot_kernel",
                 "interrobot_slot": "interrobot_slot_kernel", "gather_rows": "gather_rows_kernel",
-                "ext_sum": "ext_sum_kernel"}
+                "ext_sum": "ext_sum_kernel", "compact_table": "compact_table_kernel",
+                "compact_message": "compact_message_kernel"}
 
 
 def _device(platform: str, backend: str, rank: int, world: int) -> torch.device:
@@ -172,20 +173,24 @@ def expected_launches(params, device: torch.device) -> dict[str, int]:
     """Kernel launches a tick of `params`' schedule on `device`: one K1 per
     internal slot and one K2 per external slot where the slot kernels run,
     under "sender" one K3 and two row gathers (K4) per external slot,
-    under the receiver exchanges one K4, and on the slot kernels' path
-    one external sum before the schedule and one per external slot; none
-    on the CPU."""
+    under "receiver_compact" on the slot kernels' path the two
+    compact-exchange kernels (K5) per external slot and elsewhere under the
+    receiver exchanges one K4, and on the slot kernels' path one external
+    sum before the schedule and one per external slot; none on the CPU."""
     n_int = sum(1 for i, _ in params.schedule if i)
     n_ext = sum(1 for _, e in params.schedule if e) if params.interrobot_enabled else 0
     slots = params.uses_kernels(device)
     sender = params.ext_exchange == "sender"
     cuda = device.type == "cuda"
+    compact = slots and cuda and params.ext_exchange == "receiver_compact"
     return {
         "internal_slot": n_int if slots else 0,
         "variable_slot": n_ext if slots else 0,
         "interrobot_slot": n_ext if slots and sender else 0,
-        "gather_rows": (2 if sender else 1) * n_ext if cuda else 0,
+        "gather_rows": (2 if sender else 0 if compact else 1) * n_ext if cuda else 0,
         "ext_sum": (bool(params.schedule) + n_ext) if slots and cuda else 0,
+        "compact_table": n_ext if compact else 0,
+        "compact_message": n_ext if compact else 0,
     }
 
 

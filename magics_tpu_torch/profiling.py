@@ -448,7 +448,8 @@ OUTSIDE_GRAPH = ("FillFunctor",)
 
 #: the slot kernels and the stage each runs in (kernels/hot.py)
 SLOT_STAGES = {"internal_slot_kernel": "gbp.internal", "variable_slot_kernel": "gbp.external",
-               "interrobot_slot_kernel": "gbp.external", "gather_rows_kernel": "gbp.external"}
+               "interrobot_slot_kernel": "gbp.external", "gather_rows_kernel": "gbp.external",
+               "compact_table_kernel": "gbp.external", "compact_message_kernel": "gbp.external"}
 
 
 def _stage_at(stages: StageMap, position: int) -> str:

@@ -23,7 +23,10 @@ plain version's float order, no zero-pattern flip and IR_RTOL of each
 message's scale (chip_smoke.py's); the row gather bit for bit; the
 external sums (kernels/ext_sum.py) within float32 summation roundoff of
 each entry's terms, and bit for bit below 64 slots, where the kernel sums
-in the order of PyTorch's CUDA reduction.
+in the order of PyTorch's CUDA reduction; the compact exchange's two
+kernels (K5, kernels/compact_exchange.py) bit for bit at the bench, a
+ragged, the Circle's and the scale shapes, on a crossing's inputs, and
+over 12 ticks of the kernels' path against K5's plain versions.
 
 Chunks captured as CUDA graphs (graph/chunk.py) are held bit for bit
 against the eager ticks on the crossing, dense and grid, under all three
@@ -42,6 +45,7 @@ import torch
 
 from magics_tpu_torch.graph import factors as F
 from magics_tpu_torch.graph import tick as T
+from magics_tpu_torch.kernels import compact_exchange as CX
 from magics_tpu_torch.kernels import ext_sum as E
 from magics_tpu_torch.kernels import gbp_slot as G
 from magics_tpu_torch.kernels import hot as HOT
@@ -551,6 +555,89 @@ def test_ext_sum_wrapper_refuses_what_the_kernel_does_not_take(device, fault):
     assert E.launch_counts["ext_sum"] == before
 
 
+# --------------------------------------------------------------------------
+# the compact exchange (K5: kernels/compact_exchange.py)
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("gates", ["on", "off", "mixed"])
+@pytest.mark.parametrize("shape", ["bench", "ragged", "circle", "swarm"])
+def test_compact_exchange_kernels_bit_equal_to_plain(device, shape, gates):
+    """Both K5 kernels against their plain versions at chip_smoke's
+    COMPACT_SHAPES (R=1024, K=32; R=1021; the Circle's K=49; R=16384,
+    K=24; V=21), on seeded inputs with singular, rank-deficient, inf and
+    NaN cavities, unseeded mirrors, empty and non-reciprocal slots, the
+    gates all on, all off or mixed: the tables, gates, counter and inbox
+    bit for bit, the inbox allocated over NaN-filled memory
+    (chip_smoke.compact_compare)."""
+    R, K, V = _smoke().COMPACT_SHAPES[shape]
+    before = dict(CX.launch_counts)
+    counts = _smoke().compact_compare(
+        torch, *_smoke().compact_inputs(torch, R, K, V, seed=R + K, gates=gates), shape)
+    assert CX.launch_counts == {k: v + 1 for k, v in before.items()}
+    if gates != "off":
+        assert counts["delivered_slots"] and counts["live_messages"]
+        assert 0.0 < counts["valid_tables"] < 1.0
+
+
+def test_compact_exchange_kernels_on_a_crossing(device):
+    """K5 bit-equal to its plain version on the inputs a tick hands it: the
+    37-robot crossing under receiver_compact after 12 plain ticks, with
+    live factors."""
+    params, state, sdf = crossing(device)
+    state = T.run_ticks(state, sdf, params, 12)
+    counts = _smoke().compact_compare(torch, *_smoke().compact_state_inputs(state, params),
+                                      "crossing")
+    assert counts["live_messages"] > 0
+
+
+def test_compact_exchange_pass_bit_equal_to_its_plain_versions(device):
+    """The kernels' path of the crossing under receiver_compact (use_pallas
+    on) for 12 ticks, against the same path with K5's plain versions in
+    its place: every field bit for bit, with two launches an external
+    slot and no row gather."""
+    params, state, sdf = crossing(device, use_pallas=True)
+    n_ext = sum(1 for _, e in params.schedule if e)
+    before = {**CX.launch_counts, **L.launch_counts}
+    kern = T.run_ticks(state, sdf, params, 12)
+    torch.cuda.synchronize()
+    after = {**CX.launch_counts, **L.launch_counts}
+    assert {k: after[k] - before[k] for k in after} == {
+        "compact_table": 12 * n_ext, "compact_message": 12 * n_ext, "gather_rows": 0}
+    real = CX.compact_tables, CX.compact_messages
+    CX.compact_tables, CX.compact_messages = (CX.compact_tables_reference,
+                                              CX.compact_messages_reference)
+    try:
+        plain = T.run_ticks(state, sdf, params, 12)
+    finally:
+        CX.compact_tables, CX.compact_messages = real
+    _assert_states_bit_equal(kern, plain)
+    assert float(kern.ext_inbox.abs().sum()) > 0.0
+
+
+@pytest.mark.parametrize("fault", ["dtype", "device", "contiguity", "shape", "alignment"])
+def test_compact_exchange_wrappers_refuse_what_the_kernels_do_not_take(device, fault):
+    tables, messages = _smoke().compact_inputs(torch, 37, 7, 21)
+    tab, gate, _ = CX.compact_tables_reference(*tables)
+    kw = dict(tables_all=tab, gate=gate, gate_all=gate, **messages)
+
+    def spoil(x):
+        return {
+            "dtype": x.double(),
+            "device": x.cpu(),
+            "contiguity": x.transpose(0, 1).contiguous().transpose(0, 1),
+            "shape": x[:, :-1].contiguous(),
+            # contiguous, but 4 bytes past a 16-byte boundary
+            "alignment": torch.cat([x.new_zeros(1), x.reshape(-1)])[1:].view(x.shape),
+        }[fault]
+
+    before = dict(CX.launch_counts)
+    with pytest.raises((TypeError, ValueError)):
+        CX.compact_tables(tables[0], spoil(tables[1]), *tables[2:])
+    with pytest.raises((TypeError, ValueError)):
+        CX.compact_messages(**{**kw, "p_ext": spoil(kw["p_ext"])})
+    assert CX.launch_counts == before
+
+
 def test_default_scenario_runs_the_kernels(device):
     """A scenario built without `use_pallas` on the card runs every slot
     through the kernels: per tick one internal_slot per internal slot, one
@@ -638,11 +725,13 @@ def test_graph_replay_bit_equal_to_eager(device, exchange, path):
     graph = compile_ticks(state, sdf, params, 4)
     n_int = sum(1 for i, _ in params.schedule if i)
     n_ext = sum(1 for _, e in params.schedule if e)
+    compact = exchange == "receiver_compact"
     assert graph.launches == {
         "internal_slot": 4 * n_int, "variable_slot": 4 * n_ext,
         "interrobot_slot": 4 * n_ext if exchange == "sender" else 0,
-        "gather_rows": 4 * n_ext * (2 if exchange == "sender" else 1),
-        "ext_sum": 4 * (1 + n_ext)}
+        "gather_rows": 4 * n_ext * {"sender": 2, "receiver": 1, "receiver_compact": 0}[exchange],
+        "ext_sum": 4 * (1 + n_ext), "compact_table": 4 * n_ext if compact else 0,
+        "compact_message": 4 * n_ext if compact else 0}
     before = {**G.launch_counts, **IR.launch_counts, **L.launch_counts, **E.launch_counts}
     graph.replay()
     graph.replay()
@@ -855,7 +944,8 @@ def test_kernel_lanes_track_the_committed_oracle(device):
     parity_rmse.py: 6 robots, K=5, V=13, 10 + 10 slots), float32, 80 ticks
     through the kernels (the default on the card): max-over-robots RMSE
     within 3e-3 m of the numpy oracle's committed trajectory (ROADMAP F13),
-    completion equal, every kernel launched on every tick."""
+    completion equal, every kernel of the sender exchange launched on every
+    tick (K5, the compact exchange's, on none)."""
     import pathlib
 
     from magics_tpu_torch.kernels import launch_counts, reset_launch_counts
@@ -870,7 +960,8 @@ def test_kernel_lanes_track_the_committed_oracle(device):
     print(f"kernel lanes vs the oracle: RMSE {out['rmse_max_m']:.3e} m; launches a tick "
           f"{per_tick}")
     assert per_tick == {"internal_slot": 10.0, "variable_slot": 10.0, "interrobot_slot": 10.0,
-                        "gather_rows": 20.0, "ext_sum": 11.0}
+                        "gather_rows": 20.0, "ext_sum": 11.0, "compact_table": 0.0,
+                        "compact_message": 0.0}
     assert out["rmse_max_m"] < 3e-3
     assert out["completed_dense"] == out["completed_oracle"]
 
@@ -997,7 +1088,7 @@ def test_two_gloo_ranks_on_the_card_bit_equal_to_one_process(device, exchange, t
     workload's 1024 robots, 3 eager ticks: the gathered state equals 3
     one-process ticks bit for bit in every field (every robot's arithmetic
     is the same; the collectives move bytes and sum integers), and each
-    rank launches K1-K4 and the external sums as the schedule says."""
+    rank launches K1-K5 and the external sums as the schedule says."""
     import dataclasses
 
     import torch_shard_cases as C
@@ -1014,8 +1105,11 @@ def test_two_gloo_ranks_on_the_card_bit_equal_to_one_process(device, exchange, t
     assert not bad, bad
     assert bool(want.nbr_mask.any())
     expected = expected_launches(params, device)
-    assert expected["internal_slot"] == 10 and expected["gather_rows"] > 0
-    assert expected["ext_sum"] == 11
+    assert expected["internal_slot"] == 10 and expected["ext_sum"] == 11
+    if exchange == "sender":
+        assert expected["gather_rows"] == 20 and expected["compact_table"] == 0
+    else:   # K5 in place of the row gather
+        assert expected["gather_rows"] == 0 and expected["compact_message"] == 10
     for rank in range(2):
         launches = torch.load(f"{out}.launches{rank}")
         assert {k: launches[k] for k in expected} == expected, rank
