@@ -175,27 +175,6 @@ REPLACES = {
     "compact_message": "none (XLA: magics_tpu/graph/factors.py:434, :505 "
                        "interrobot_rank1_messages_compact)",
 }
-# Kernel launches per tick of the bench workload (50 internal + 10 external
-# slots). Under "sender" each external slot makes one message table, one
-# delivery gather of the peers' outboxes and one response gather; under
-# "receiver_compact" one compact table and one compact message kernel (K5).
-# Under both the external sums run once before the schedule and once per
-# external slot.
-LAUNCHES_PER_TICK = {
-    "sender": {"internal_slot": 50, "variable_slot": 10, "interrobot_slot": 10,
-               "gather_rows": 20, "ext_sum": 11, "compact_table": 0, "compact_message": 0},
-    "receiver_compact": {"internal_slot": 50, "variable_slot": 10, "interrobot_slot": 0,
-                         "gather_rows": 0, "ext_sum": 11, "compact_table": 10,
-                         "compact_message": 10},
-}
-# The same for the scale workload (10 internal + 10 external slots).
-SCALE_LAUNCHES_PER_TICK = {
-    "sender": {"internal_slot": 10, "variable_slot": 10, "interrobot_slot": 10,
-               "gather_rows": 20, "ext_sum": 11, "compact_table": 0, "compact_message": 0},
-    "receiver_compact": {"internal_slot": 10, "variable_slot": 10, "interrobot_slot": 0,
-                         "gather_rows": 0, "ext_sum": 11, "compact_table": 10,
-                         "compact_message": 10},
-}
 KERNEL_NAMES = {"internal_slot": "internal_slot_kernel", "variable_slot": "variable_slot_kernel",
                 "interrobot_slot": "interrobot_slot_kernel", "gather_rows": "gather_rows_kernel",
                 "ext_sum": "ext_sum_kernel", "compact_table": "compact_table_kernel",
@@ -296,6 +275,16 @@ def read_counts() -> dict:
     from magics_tpu_torch.kernels import launch_counts
 
     return launch_counts()
+
+
+def launches_per_tick(params, device="cuda") -> dict:
+    """The kernel launches a tick of `params`' workload makes on `device`,
+    from the schedule and the exchange (graph/gbp.py:expected_launches)."""
+    import torch
+
+    from magics_tpu_torch.graph.gbp import expected_launches
+
+    return expected_launches(params, torch.device(device))
 
 
 def obstacle_sdf(n: int = 128) -> np.ndarray:
@@ -636,7 +625,7 @@ def kernel_phase(torch, device) -> dict:
 
 def interrobot_compare(torch, inputs: dict, sigma: float, label: str) -> tuple:
     """The inter-robot message table against its plain version on `inputs`
-    (ir_slot.sender_inputs): finite, no entry zero in one and not the other,
+    (exchange.sender_inputs): finite, no entry zero in one and not the other,
     each live message within IR_RTOL of its own scale, some message live.
     Returns the kernel's table and the largest absolute error."""
     from magics_tpu_torch.kernels import ir_slot as IR
@@ -674,9 +663,10 @@ def interrobot_check(torch, state, params, label: str) -> dict:
     snapshot, so the live path, the skip and the guards all run on many
     entries; otherwise the state's own inputs are taken as the main path
     gives them."""
+    from magics_tpu_torch.graph.exchange import sender_inputs
     from magics_tpu_torch.kernels import ir_slot as IR
 
-    inputs = IR.sender_inputs(state, params)
+    inputs = sender_inputs(state, params)
     R, K, V1 = inputs["seeded"].shape
     seeded = inputs["seeded"]
     if label == "synthetic":
@@ -1070,7 +1060,7 @@ def slice_phase(torch, exchange: str) -> dict:
     state, dt, ticks, launches = run["state"], run["seconds"], run["ticks"], run["launches"]
     log(f"[slice] {exchange}: warm-up 2 x {CHUNK} ticks in {run['warm_s']:.2f} s")
     guards = check_state(torch, f"slice {exchange}", state, start_pos)
-    expected = {name: n * ticks for name, n in LAUNCHES_PER_TICK[exchange].items()}
+    expected = {name: n * ticks for name, n in launches_per_tick(params).items()}
     if launches != expected:
         raise AssertionError(f"{exchange}: launches {launches} for {ticks} ticks, "
                              f"expected {expected}")
@@ -1155,7 +1145,7 @@ def graph_phase(torch, exchange: str, state, params, sdf, eager_ms: float) -> fl
     t0 = time.perf_counter()
     graph = compile_ticks(state, sdf, params, GRAPH_CHUNK)
     capture_s = time.perf_counter() - t0
-    expected = {k: n * GRAPH_CHUNK for k, n in LAUNCHES_PER_TICK[exchange].items()}
+    expected = {k: n * GRAPH_CHUNK for k, n in launches_per_tick(params).items()}
     if graph.launches != expected:
         raise AssertionError(f"graph {exchange}: capture launches {graph.launches}, "
                              f"expected {expected}")
@@ -1226,6 +1216,7 @@ def scale_bounds(torch, state, params, sdf, exchange: str) -> dict:
     roundoff on the state's inbox and a seeded one, K3 (sender) on the
     synthetic variant of its inputs (the ring's 4.9 m spacing leaves no
     factor in range yet), K4 bit for bit at this exchange's call sites."""
+    from magics_tpu_torch.graph.exchange import sender_inputs
     from magics_tpu_torch.kernels import gbp_slot as G
     from magics_tpu_torch.kernels import hot as HOT
     from magics_tpu_torch.kernels import ir_slot as IR
@@ -1259,7 +1250,7 @@ def scale_bounds(torch, state, params, sdf, exchange: str) -> dict:
                     for k, w in compact_work(messages, counts["delivered_slots"]).items()})
     if exchange == "sender":
         # the bound of the main path's own inputs: nothing in range yet
-        inputs = IR.sender_inputs(state, params)
+        inputs = sender_inputs(state, params)
         seeded = inputs["seeded"]
         snap = torch.where(seeded[..., None], inputs["snap_mu"][:, None, 1:, :2], 0.0)
         x = snap - inputs["p_ext"]
@@ -1292,9 +1283,11 @@ def scale_bounds(torch, state, params, sdf, exchange: str) -> dict:
 def tick_phases(torch, state, sdf, params) -> dict:
     """Milliseconds of each phase of one eager tick from `state`: the
     functions of tick.step's chain and, within iterate_gbp, the hot loop's
-    pieces, each bracketed by synchronisations (host and device work)."""
+    pieces (graph/gbp.py and the exchange's), each bracketed by
+    synchronisations (host and device work)."""
+    from magics_tpu_torch.graph import exchange as EX
+    from magics_tpu_torch.graph import gbp as GBP
     from magics_tpu_torch.graph import tick as T
-    from magics_tpu_torch.kernels import hot as HOT
     from magics_tpu_torch.profiling import host_timers
 
     chain = ("activate_due_spawns", "check_waypoints", "update_connectivity",
@@ -1302,8 +1295,10 @@ def tick_phases(torch, state, sdf, params) -> dict:
              "update_prior_current", "iterate_gbp", "update_message_counts",
              "update_collisions", "update_collisions_grid", "update_goal_areas",
              "log_positions")
-    slot = [(HOT, "internal_slot"), (HOT, "variable_slot"), (HOT, "_ext_sum_hot"),
-            (T, "seed_cavities"), (T, "external_factor_pass"), (T, "deliver_responses")]
+    exchange = EX.exchange_of(params)
+    slot = [(GBP, "internal_slot"), (GBP, "variable_slot"), (GBP, "_ext_sum_hot"),
+            (exchange, "seed_cavities"), (GBP, "external_factor_pass"),
+            (exchange, "deliver_responses")]
     rec, restore = host_timers([(T, name) for name in chain] + slot, sync=True)
     try:
         T.step(state, sdf, params)
@@ -1332,8 +1327,7 @@ def scale_phase(torch, exchange: str) -> dict:
     t0 = time.perf_counter()
     graph = compile_ticks(state, sdf, params, S.CHUNK)
     capture_s = time.perf_counter() - t0
-    per_tick = SCALE_LAUNCHES_PER_TICK[exchange]
-    expected = {k: n * S.CHUNK for k, n in per_tick.items()}
+    expected = {k: n * S.CHUNK for k, n in launches_per_tick(params).items()}
     if graph.launches != expected:
         raise AssertionError(f"scale {exchange}: capture launches {graph.launches}, "
                              f"expected {expected}")
@@ -1573,10 +1567,10 @@ def kernels_at(torch, state, params, sdf, label: str) -> None:
     on the chaotic crossings one float32 tick of the kernels' path and of
     the plain passes differs by up to 1.8e-2 of scale (the inter-robot
     messages, the circle at tick 15, both on the CPU), past TICK_RTOL."""
-    from magics_tpu_torch.kernels import ir_slot as IR
+    from magics_tpu_torch.graph.exchange import sender_inputs
 
     slot_kernels_check(torch, state, params, sdf, label)
-    interrobot_compare(torch, IR.sender_inputs(state, params), params.sigma_factor_interrobot,
+    interrobot_compare(torch, sender_inputs(state, params), params.sigma_factor_interrobot,
                        label)
     gather_bits(torch, state, label)
 
@@ -1630,9 +1624,10 @@ def circle_phase(torch) -> dict:
     graph = sim.graphs[SIM_CHUNK]
     per_tick = {k: v / SIM_CHUNK for k, v in graph.launches.items()}
     capture_s = sum(s for _, s in sim.stats.captures)
-    if per_tick != {k: float(v) for k, v in LAUNCHES_PER_TICK["sender"].items()}:
+    want = launches_per_tick(p)
+    if per_tick != {k: float(v) for k, v in want.items()}:
         raise AssertionError(f"(a): capture launches per tick {per_tick}")
-    if not all(launches[k] for k, n in LAUNCHES_PER_TICK["sender"].items() if n):
+    if not all(launches[k] for k, n in want.items() if n):
         raise AssertionError(f"(a): a kernel of the Simulator's path never launched: {launches}")
     if (result["completed"] != len(sim.specs) or result["makespan"] >= 60.0
             or result["nbr_overflow"] != 0):
@@ -1855,7 +1850,7 @@ def swarm_phase(torch, graph_ms: float) -> None:
     sim.run(max_ticks=GRAPH_CHUNK, chunk_ticks=GRAPH_CHUNK)     # capture
     graph = sim.graphs[GRAPH_CHUNK]
     per_tick = {k: v / GRAPH_CHUNK for k, v in graph.launches.items()}
-    if per_tick != {k: float(v) for k, v in LAUNCHES_PER_TICK["sender"].items()}:
+    if per_tick != {k: float(v) for k, v in launches_per_tick(sim.params).items()}:
         raise AssertionError(f"(f): capture launches per tick {per_tick}")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1979,9 +1974,10 @@ def cli_run_phase(torch, circle_dir, tmpdir, circle: dict) -> dict:
         raise AssertionError(f"(b) the CLI's run: exit {code}, {sim.device}, {summary}")
     graph = sim.graphs[SURFACE_CHUNK]
     per_tick = {k: v / SURFACE_CHUNK for k, v in graph.launches.items()}
-    if per_tick != {k: float(v) for k, v in LAUNCHES_PER_TICK["sender"].items()}:
+    want = launches_per_tick(sim.params)
+    if per_tick != {k: float(v) for k, v in want.items()}:
         raise AssertionError(f"(b): capture launches per tick {per_tick}")
-    if not all(launches[k] for k, n in LAUNCHES_PER_TICK["sender"].items() if n):
+    if not all(launches[k] for k, n in want.items() if n):
         raise AssertionError(f"(b): a kernel never launched in the CLI's run: {launches}")
     export = json.loads(out["json"].read_text())
     want = json.loads(json.dumps(circle["export"]))
@@ -2336,11 +2332,13 @@ def sharded_compare(torch, exchange: str, saved: dict) -> dict:
 def shard_exchange(torch, exchange: str, backend: str, tmpdir) -> dict:
     """(a) for one exchange: the ranks, their reports checked, and the
     gathered state against one process."""
+    from magics_tpu_torch.bench.scale import scale_scenario
+
     t0 = time.perf_counter()
     save = f"{tmpdir}/shard_{exchange}_{backend}.pt"
     reports = launch_ranks(exchange, backend, save)
     launch_s = time.perf_counter() - t0
-    want = SCALE_LAUNCHES_PER_TICK[exchange]
+    want = launches_per_tick(scale_scenario(64, exchange)[0])
     for rep in reports:
         got = {k: rep["launches_per_tick"][k] for k in want}
         if got != want:
@@ -2401,10 +2399,6 @@ def shard_phase(torch) -> dict:
 # phase 12: experiments and parity
 # --------------------------------------------------------------------------
 
-# The parity cases' slots, 10 internal + 10 external a tick under "sender"
-PARITY_LAUNCHES_PER_TICK = {"internal_slot": 10, "variable_slot": 10, "interrobot_slot": 10,
-                            "gather_rows": 20, "ext_sum": 11, "compact_table": 0,
-                            "compact_message": 0}
 # The lanes case in float64 on the card's plain passes against the oracle:
 # roundoff only (over its 80 ticks 4.6e-11 m for the port's tick and 4.8e-11
 # for the JAX tick, both on the CPU), so 1e-6 m leaves four orders for
@@ -2453,7 +2447,10 @@ def parity_phase(torch) -> dict:
         per_tick = {k: v / ticks for k, v in read_counts().items()}
         label = f"{name} {str(dtype).removeprefix('torch.')}"
         if dtype == torch.float32:
-            if per_tick != {k: float(v) for k, v in PARITY_LAUNCHES_PER_TICK.items()}:
+            make, factors, _, _ = P.CASES[name]
+            params, state, sdf = P.build_case(*make(), factors=factors, dtype=dtype,
+                                              device="cuda")
+            if per_tick != {k: float(v) for k, v in launches_per_tick(params).items()}:
                 raise AssertionError(f"(a) {label}: launches a tick {per_tick}")
             out[name] = per_tick
         elif per_tick["internal_slot"] or per_tick["variable_slot"]:
@@ -2468,9 +2465,6 @@ def parity_phase(torch) -> dict:
             f"tick {per_tick}; {run_s:.2f} s (the JAX tick's RMSE on the CPU, recorded in the "
             f"reference: float64 {jax64:.3e}, float32 {jax32:.3e} m)")
         if dtype == torch.float32:
-            make, factors, _, _ = P.CASES[name]
-            params, state, sdf = P.build_case(*make(), factors=factors, dtype=dtype,
-                                              device="cuda")
             state = P.trajectory(params, state, sdf, PARITY_CHECK_TICK[name])["state"]
             kernels_at(torch, state, params, sdf,
                        f"(a) {name} at tick {PARITY_CHECK_TICK[name]}")
@@ -2480,7 +2474,7 @@ def parity_phase(torch) -> dict:
 def row_contract(done) -> dict:
     """A harness row against the experiment's contract (every robot
     completes, makespan < 60 s, no overflow) and its chunk graph's launches
-    a tick against the sender workload's 50 / 10 / 10 / 20 / 11. Returns the
+    a tick against those of its schedule (launches_per_tick). Returns the
     launches a tick."""
     row, sim = done.row, done.sim
     if (row["completed"] != row["robots"] or row["makespan"] >= 60.0
@@ -2490,7 +2484,7 @@ def row_contract(done) -> dict:
         raise AssertionError(f"(b) the row ran on {sim.state.device}, graphs {sorted(sim.graphs)}")
     (chunk, graph), = sim.graphs.items()
     per_tick = {k: v / chunk for k, v in graph.launches.items()}
-    if per_tick != {k: float(v) for k, v in LAUNCHES_PER_TICK["sender"].items()}:
+    if per_tick != {k: float(v) for k, v in launches_per_tick(sim.params).items()}:
         raise AssertionError(f"(b) row {row['robots']} robots, seed {row['seed']}: launches a "
                              f"tick {per_tick}")
     t = done.times
@@ -2539,7 +2533,7 @@ def experiment_phase(torch, tmpdir) -> dict:
     summary = json.loads((out_dir / "summary.json").read_text())
     if code != 0 or len(rows) != 4 or [r["robots"] for r in summary] != [10, 10, 50, 50]:
         raise AssertionError(f"(b) the sweep: exit {code}, rows {summary}")
-    if not all(launches[k] for k, n in LAUNCHES_PER_TICK["sender"].items() if n):
+    if not all(launches[k] for k, n in launches_per_tick(rows[0][0].sim.params).items() if n):
         raise AssertionError(f"(b) a kernel never launched in the sweep: {launches}")
     capture_s = sum(done.times["capture_s"] for done, _ in rows)
     log(f"[experiments] (b) run_experiment.main '{circle_dir.name}' {' '.join(SWEEP)}: "

@@ -8,11 +8,17 @@ spacing increases roughly quadratically while all timesteps stay integral and
 the first planned variable is always one timestep after the current state.
 
 E.g. horizon 30, multiple 3 -> [0, 1, 2, 3, 5, 7, 9, 12, 15, 18, 22, 26, 30].
+
+`device_timesteps` holds them as a tensor on a device for the tick
+(graph/gbp.py) and the hot layout (kernels/hot.py).
 """
 
 from __future__ import annotations
 
+import functools
 import math
+
+import torch
 
 
 def get_variable_timesteps(lookahead_horizon: int, lookahead_multiple: int) -> list[int]:
@@ -43,3 +49,18 @@ def get_variable_timesteps(lookahead_horizon: int, lookahead_multiple: int) -> l
         timesteps.append(int(f))
 
     return timesteps
+
+
+# Unbounded: a captured chunk (graph/chunk.py) reads the tensor's address on
+# every replay, so an entry must never be evicted and its memory reused.
+@functools.cache
+def _device_timesteps_cached(ts: tuple, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    return torch.as_tensor(ts, dtype=dtype, device=device)
+
+
+def device_timesteps(params, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """[V] the variables' timesteps (`params.variable_timesteps`) as a
+    tensor on `device`, made once per (timesteps, dtype, device) and kept
+    for the process's life: a tick copies nothing from the host (a first
+    tick, before any capture, makes it)."""
+    return _device_timesteps_cached(tuple(params.variable_timesteps), dtype, torch.device(device))

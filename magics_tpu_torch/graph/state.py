@@ -84,7 +84,7 @@ class GbpParams:
     # the port carries all three and refuses any other name.
     ext_exchange: str = "sender"
 
-    # Run the GBP slots through the hand-written kernels (kernels/hot.py)
+    # Run the GBP slots through the hand-written kernels (graph/gbp.py)
     # on the hot layout: True or False as asked; None (the default) for the
     # kernels on a CUDA state whose dtype and V they take, the plain passes
     # otherwise, as the JAX package runs XLA (`uses_kernels`). True asks for

@@ -10,12 +10,10 @@ tensors).
 The port carries every configuration the JAX `step` takes on one device:
 dense or grid connectivity and collisions (`grid_cell_size > 0`, graph/grid.py),
 the collision event records (`collision_log_capacity > 0`), and all three
-inter-robot exchanges, branch for branch: "sender" (the reference's routing:
-each factor owner computes its outbox, receivers gather it by (peer,
-reciprocal slot)), "receiver" and "receiver_compact" (each receiver
-recomputes its incoming messages from the peers' gathered snapshot tables
-and local mirrors). `scan_schedule` changes only how XLA compiles the
-schedule, so the port runs the same slots unrolled whatever it says.
+inter-robot exchanges, whose every step lives in graph/exchange.py. The GBP
+schedule and its passes, plain and through the kernels, are graph/gbp.py.
+`scan_schedule` changes only how XLA compiles the schedule, so the port
+runs the same slots unrolled whatever it says.
 
 Every cross-robot access goes through `comm` (parallel/comm.py): with a
 `ShardComm` the same step runs on one rank's rows of a robot-sharded state,
@@ -24,45 +22,33 @@ collision event rings, whose write order is global.
 
 A tick copies nothing from the host to the card and never waits for the
 card, so a chunk of ticks can be captured in a CUDA graph (graph/chunk.py):
-its constants are device tensors cached per device (`_timesteps`) or Python
-scalars handed to the ops. `profiling.stage` marks where each system of
-the chain begins, for the captured graph's stage map; elsewhere a mark
-does nothing.
+its constants are device tensors cached per device
+(core/timesteps.py:device_timesteps) or Python scalars handed to the ops.
+`profiling.stage` marks where each system of the chain begins, for the
+captured graph's stage map; elsewhere a mark does nothing.
 """
 
 from __future__ import annotations
 
-import functools
 from dataclasses import replace
 
 import torch
 
 from magics_tpu_torch import profiling
-from magics_tpu_torch.core.constants import TRACKING_SKIP_FIRST_N_FACTOR_ITERS
 from magics_tpu_torch.core.linalg import inv4_rowscaled
-from magics_tpu_torch.graph import factors as F
 from magics_tpu_torch.graph import grid as G
-from magics_tpu_torch.graph import variables as VU
+from magics_tpu_torch.graph.exchange import exchange_of
+# the receiver exchanges' pass as benchmark/tests/test_bench_compact_exchange.py names it
+from magics_tpu_torch.graph.gbp import external_factor_pass as _external_factor_pass_receiver  # noqa: F401
+from magics_tpu_torch.graph.gbp import iterate_gbp
+from magics_tpu_torch.graph.masks import clip_idx, expand_mask, not_idle, where_rows
 from magics_tpu_torch.graph.state import GbpParams, SimState
-from magics_tpu_torch.kernels import compact_exchange as CX
-from magics_tpu_torch.kernels import ir_slot as IR
-from magics_tpu_torch.kernels.layout import gather_rows
 from magics_tpu_torch.parallel.comm import LOCAL
 
 
 # --------------------------------------------------------------------------
 # helpers
 # --------------------------------------------------------------------------
-
-def _exp(mask: torch.Tensor, ndim_extra: int) -> torch.Tensor:
-    """Expand a boolean mask with trailing singleton dims."""
-    return mask.reshape(mask.shape + (1,) * ndim_extra)
-
-
-def _where_rows(gate_r: torch.Tensor, new: torch.Tensor, old: torch.Tensor) -> torch.Tensor:
-    """Per-robot select between two [R, ...] tensors."""
-    return torch.where(_exp(gate_r, new.ndim - 1), new, old)
-
 
 def _set_where(arr: torch.Tensor, index, gate: torch.Tensor, value) -> torch.Tensor:
     """A copy of `arr` with `arr[index]` replaced by `value` (a tensor, or a
@@ -72,27 +58,8 @@ def _set_where(arr: torch.Tensor, index, gate: torch.Tensor, value) -> torch.Ten
     old = arr[index]
     if isinstance(value, torch.Tensor):
         value = value.to(arr.dtype)
-    out[index] = torch.where(_exp(gate, old.ndim - gate.ndim), value, old)
+    out[index] = torch.where(expand_mask(gate, old.ndim - gate.ndim), value, old)
     return out
-
-
-# Unbounded: a captured chunk (graph/chunk.py) reads the tensor's address on
-# every replay, so an entry must never be evicted and its memory reused.
-@functools.cache
-def _timesteps_cached(ts: tuple, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
-    return torch.as_tensor(ts, dtype=dtype, device=device)
-
-
-def _timesteps(params: GbpParams, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
-    """[V] the variables' timesteps as a tensor on `device`, made once per
-    (timesteps, dtype, device) and kept for the process's life: a tick
-    copies nothing from the host (a first tick, before any capture, makes
-    it)."""
-    return _timesteps_cached(tuple(params.variable_timesteps), dtype, torch.device(device))
-
-
-def _clip_idx(idx: torch.Tensor, n: int) -> torch.Tensor:
-    return idx.clamp(0, n - 1).long()
 
 
 def compute_back_slots(nbr_idx: torch.Tensor, nbr_mask: torch.Tensor, comm=LOCAL):
@@ -101,44 +68,12 @@ def compute_back_slots(nbr_idx: torch.Tensor, nbr_mask: torch.Tensor, comm=LOCAL
     `jnp.argmax`); has_back where such a slot exists and the slot is live."""
     Rl, K = nbr_idx.shape
     nbr_all = comm.all_robots(nbr_idx)
-    their_rows = nbr_all[_clip_idx(nbr_idx, nbr_all.shape[0])]   # [Rl, K, K]
+    their_rows = nbr_all[clip_idx(nbr_idx, nbr_all.shape[0])]   # [Rl, K, K]
     me = comm.row_ids(Rl, nbr_idx.device).to(nbr_idx.dtype)[:, None, None]
     eq = their_rows == me
     back = eq.to(torch.uint8).argmax(dim=-1).to(torch.int32)
     has_back = eq.any(dim=-1) & nbr_mask
     return back, has_back
-
-
-def _gather_from_peer(arr: torch.Tensor, nbr_idx, back, mask) -> torch.Tensor:
-    """out[r, k, ...] = arr[nbr_idx[r,k], back[r,k], ...], 0 where ~mask.
-    `arr` must be a GLOBAL [R_total, K, ...] tensor (comm.all_robots'd).
-    One row gather (K4, kernels/layout.py) of the flattened [R*K, ...]
-    table, where the JAX package pins XLA's layout around the same gather."""
-    R, K = arr.shape[:2]
-    idx = _clip_idx(nbr_idx, R) * K + _clip_idx(back, K)
-    return _gather_rows_pinned(arr.reshape(R * K, *arr.shape[2:]), idx, mask)
-
-
-def _gather_robot(arr: torch.Tensor, nbr_idx, mask) -> torch.Tensor:
-    """out[r, k, ...] = arr[nbr_idx[r,k], ...], 0 where ~mask.
-    `arr` must be a GLOBAL [R_total, ...] tensor (comm.all_robots'd). Plain
-    indexing: the JAX package pins no layout around the gathers of
-    connectivity and the horizon; the exchanges' gathers go through
-    `_gather_rows_pinned`."""
-    out = arr[_clip_idx(nbr_idx, arr.shape[0])]
-    return torch.where(_exp(mask, out.ndim - 2), out, torch.zeros_like(out))
-
-
-def _gather_rows_pinned(arr: torch.Tensor, idx: torch.Tensor, mask=None) -> torch.Tensor:
-    """out[r, k, ...] = arr[idx[r, k], ...], 0 where `mask` [r, k] is false:
-    one row gather (K4, kernels/layout.py) of `arr` flattened to rows, at
-    each site where the JAX package pins XLA's layout around the gather.
-    `idx` is clipped by the caller."""
-    out = gather_rows(
-        arr.reshape(arr.shape[0], -1).contiguous(), idx.reshape(-1).long(),
-        None if mask is None else mask.reshape(-1),
-    )
-    return out.reshape(idx.shape + arr.shape[1:])
 
 
 # --------------------------------------------------------------------------
@@ -172,8 +107,8 @@ def check_waypoints(state: SimState, params: GbpParams) -> SimState:
     check_var = torch.where(is_last, state.fin_check_var, state.wp_check_var)
     check_d2 = torch.where(is_last, state.fin_check_dist2, state.wp_check_dist2)
 
-    est = state.belief_mean[rows, _clip_idx(check_var, V), :2]          # [R, 2]
-    wp = state.waypoints[rows, _clip_idx(state.target_idx, state.waypoints.shape[1]), :2]
+    est = state.belief_mean[rows, clip_idx(check_var, V), :2]          # [R, 2]
+    wp = state.waypoints[rows, clip_idx(state.target_idx, state.waypoints.shape[1]), :2]
 
     d2 = ((est - wp) ** 2).sum(dim=-1)
     reached = gate & (d2 < check_d2)
@@ -248,7 +183,7 @@ def update_connectivity(state: SimState, params: GbpParams, comm=LOCAL) -> SimSt
     in_range = (d2 <= radius2) & not_self & state.active[:, None] & act_all[None, :]
 
     rows = torch.arange(Rl, device=dev)[:, None]
-    keep = state.nbr_mask & in_range[rows, _clip_idx(state.nbr_idx, R)]
+    keep = state.nbr_mask & in_range[rows, clip_idx(state.nbr_idx, R)]
 
     kept_ids = torch.where(keep, state.nbr_idx, torch.full_like(state.nbr_idx, -1))
     conn = (kept_ids[:, :, None] == cols[None, None, :]).any(dim=1)   # [Rl, R]
@@ -289,28 +224,19 @@ def _finish_connectivity(
     slot_reset = ~keep
 
     def reset(arr):
-        return torch.where(_exp(slot_reset, arr.ndim - 2), torch.zeros_like(arr), arr)
+        return torch.where(expand_mask(slot_reset, arr.ndim - 2), torch.zeros_like(arr), arr)
 
     ir_v2f_ext_pos = reset(state.ir_v2f_ext_pos)
     seeded = torch.where(slot_reset[..., None], False, state.ir_int_seeded)
 
-    # seed new factors' external linearisation point with the neighbour's
-    # current belief position (robot.rs:1556-1566); variables 1..V-1 map to
-    # chain slots 0..V-2
-    if params.ext_exchange != "sender":
-        # receiver-computes mirror: the PEER's new factor was seeded with MY
-        # current belief position, so the mirror write is local
-        ext_pos = state.belief_mean[:, None, 1:, :2]
-    else:
-        ext_pos = _gather_robot(
-            comm.all_robots(state.belief_mean[..., :2]), nbr_idx_new, is_new
-        )[:, :, 1:, :]
-    ir_v2f_ext_pos = torch.where(_exp(is_new, 2), ext_pos, ir_v2f_ext_pos)
+    # seed new factors' external linearisation point (robot.rs:1556-1566)
+    ext_pos = exchange_of(params).new_factor_positions(state, nbr_idx_new, is_new, comm)
+    ir_v2f_ext_pos = torch.where(expand_mask(is_new, 2), ext_pos, ir_v2f_ext_pos)
 
     K = nbr_idx_new.shape[1]
     mask_all = comm.all_robots(mask_new)
-    j_safe = _clip_idx(nbr_idx_new, mask_all.shape[0])
-    peer_alive = mask_all.reshape(-1)[j_safe * K + _clip_idx(back, K)]
+    j_safe = clip_idx(nbr_idx_new, mask_all.shape[0])
+    peer_alive = mask_all.reshape(-1)[j_safe * K + clip_idx(back, K)]
     has_back_final = mask_new & peer_alive
 
     return replace(
@@ -385,7 +311,7 @@ def update_connectivity_grid(
     radius2 = params.comms_radius * params.comms_radius
 
     # keep existing slots by exact distance (both endpoints alive)
-    safe = _clip_idx(state.nbr_idx, R)
+    safe = clip_idx(state.nbr_idx, R)
     diff = state.pos[:, None, :] - pos_all[safe]
     d2_slot = (diff * diff).sum(dim=-1)
     keep = state.nbr_mask & state.active[:, None] & act_all[safe] & (d2_slot <= radius2)
@@ -449,7 +375,7 @@ def update_prior_horizon(state: SimState, params: GbpParams, comm=LOCAL) -> SimS
     )
 
     est_pos = state.belief_mean[:, V - 1, :2]
-    wp = state.waypoints[rows, _clip_idx(state.target_idx, state.waypoints.shape[1]), :2]
+    wp = state.waypoints[rows, clip_idx(state.target_idx, state.waypoints.shape[1]), :2]
     h2w = wp - est_pos
     dist = torch.linalg.vector_norm(h2w, dim=-1, keepdim=True)
     direction = torch.where(
@@ -464,32 +390,8 @@ def update_prior_horizon(state: SimState, params: GbpParams, comm=LOCAL) -> SimS
     h_lam = state.belief_lam[:, V - 1]
     hor, last_edge = (slice(None), V - 1), (slice(None), V - 2, 1)
 
-    gate_all = comm.all_robots(gate)
-    src = _clip_idx(state.nbr_idx, gate_all.shape[0])
-    seeded = state.ir_int_seeded.clone()
-    ir_v2f_ext_pos = state.ir_v2f_ext_pos.clone()
-    if params.ext_exchange != "sender":
-        # receiver-computes mirrors (magics_tpu state.py): the PEER's factor
-        # received MY new horizon mean, and the PEER's seeded flag for its
-        # slot V-2 went true where ITS gate held
-        seeded[:, :, V - 2] |= gate_all[src] & state.nbr_has_back
-        ir_v2f_ext_pos[:, :, V - 2] = torch.where(
-            (gate[:, None] & state.nbr_has_back)[..., None],
-            new_mean[:, None, :2],
-            state.ir_v2f_ext_pos[:, :, V - 2],
-        )
-    else:
-        seeded[:, :, V - 2] = torch.where(
-            gate[:, None], state.nbr_mask, state.ir_int_seeded[:, :, V - 2]
-        )
-        # responses to external factors (ungated receive, robot.rs:2272-2282):
-        # the factor owned by (r, k) at chain slot V-2 has j = nbr_idx[r, k]'s
-        # horizon variable as its external variable
-        sent = gate_all[src] & state.nbr_mask
-        ir_v2f_ext_pos[:, :, V - 2] = torch.where(
-            sent[..., None], comm.all_robots(new_mean)[src][..., :2],
-            state.ir_v2f_ext_pos[:, :, V - 2],
-        )
+    # the responses to the horizon's external factors, and its cavities
+    seeded, ir_v2f_ext_pos = exchange_of(params).horizon_mirrors(state, gate, new_mean, comm)
 
     return replace(
         state,
@@ -536,355 +438,8 @@ def update_prior_current(state: SimState, params: GbpParams) -> SimState:
         snap_mu=_set_where(state.snap_mu, cur, gate, new_mean),
         dyn_f2v_eta=_set_where(state.dyn_f2v_eta, first_edge, gate, 0.0),
         dyn_f2v_lam=_set_where(state.dyn_f2v_lam, first_edge, gate, 0.0),
-        pos=_where_rows(gate, state.pos + change[:, :2], state.pos),
+        pos=where_rows(gate, state.pos + change[:, :2], state.pos),
     )
-
-
-# --------------------------------------------------------------------------
-# GBP passes — the plain path, and the in-port reference for the kernels
-# --------------------------------------------------------------------------
-
-def _not_idle(state: SimState) -> torch.Tensor:
-    return state.mission_active | state.completed
-
-
-def _delta_t(state: SimState, params: GbpParams) -> torch.Tensor:
-    """[R, V-1] dynamic-factor time gaps t0 * (ts[i+1] - ts[i])."""
-    ts = _timesteps(params, state.t0.dtype, state.device)
-    return state.t0[:, None] * (ts[1:] - ts[:-1])[None, :]
-
-
-def internal_factor_pass(state: SimState, sdf: torch.Tensor, params: GbpParams) -> SimState:
-    """All non-interrobot factors update (factorgraph.rs:686-714)."""
-    V = state.prior_mean.shape[1]
-    f = state.prior_mean.dtype
-    gate = state.active & _not_idle(state)
-    updates: dict = {}
-
-    if params.dynamic_enabled:
-        f2v_eta, f2v_lam = F.dynamic_factor_messages(
-            state.dyn_v2f_eta, state.dyn_v2f_lam, state.dyn_v2f_mu,
-            _delta_t(state, params), params.sigma_factor_dynamics, dtype=f,
-        )
-        updates["dyn_f2v_eta"] = _where_rows(gate, f2v_eta, state.dyn_f2v_eta)
-        updates["dyn_f2v_lam"] = _where_rows(gate, f2v_lam, state.dyn_f2v_lam)
-
-    world = (params.world_width, params.world_height)
-    if params.obstacle_enabled and V > 2:
-        h0, hx, hy = F.obstacle_taps(state.obs_v2f_mu, sdf, world, dtype=f)
-        o_eta, o_lam = F.obstacle_messages_from_taps(
-            h0, hx, hy, state.obs_v2f_mu, F.obstacle_delta(tuple(sdf.shape), world),
-            params.sigma_factor_obstacle, dtype=f,
-        )
-        updates["obs_f2v_eta"] = _where_rows(gate, o_eta, state.obs_f2v_eta)
-        updates["obs_f2v_lam"] = _where_rows(gate, o_lam, state.obs_f2v_lam)
-
-    if params.tracking_enabled and V > 2:
-        # factorgraph.rs:701 — skip tracking for the first 10 factor passes
-        t_gate = gate & (state.iter_count_factor >= TRACKING_SKIP_FIRST_N_FACTOR_ITERS)
-        t_eta, t_lam, new_record, new_timeout, last_pos, last_val, skipped = (
-            F.tracking_factor_messages(
-                state.trk_v2f_mu, state.trk_path, state.trk_path_len,
-                state.trk_record, state.trk_index, state.trk_timeout,
-                params.tracking_switch_padding, params.tracking_attraction_distance,
-                params.sigma_factor_tracking, dtype=f,
-            )
-        )
-        measured = t_gate[:, None] & ~skipped
-        updates["trk_f2v_eta"] = _where_rows(t_gate, t_eta, state.trk_f2v_eta)
-        updates["trk_f2v_lam"] = _where_rows(t_gate, t_lam, state.trk_f2v_lam)
-        updates["trk_record"] = _where_rows(t_gate, new_record, state.trk_record)
-        updates["trk_timeout"] = _where_rows(t_gate, new_timeout, state.trk_timeout)
-        updates["trk_last_pos"] = torch.where(measured[..., None], last_pos, state.trk_last_pos)
-        updates["trk_last_val"] = torch.where(measured, last_val, state.trk_last_val)
-
-    updates["iter_count_factor"] = state.iter_count_factor + gate.to(torch.int32)
-    return replace(state, **updates)
-
-
-def seed_cavities(state: SimState, params: GbpParams, gate: torch.Tensor, comm=LOCAL) -> torch.Tensor:
-    """`ir_int_seeded` after an internal variable pass under `gate`. Under
-    "sender" a robot's own cavities of its live slots go live where its gate
-    held; under the receiver exchanges the flag mirrors the PEER's: the
-    peer's cavity for its reciprocal slot went live where ITS gate held."""
-    if params.ext_exchange == "sender":
-        return state.ir_int_seeded | (gate[:, None] & state.nbr_mask)[..., None]
-    gate_all = comm.all_robots(gate)
-    src = _clip_idx(state.nbr_idx, gate_all.shape[0])
-    return state.ir_int_seeded | (gate_all[src] & state.nbr_has_back)[..., None]
-
-
-def internal_variable_pass(state: SimState, params: GbpParams, comm=LOCAL) -> SimState:
-    """Belief update + responses to internal factors (factorgraph.rs:762-790)."""
-    V = state.prior_mean.shape[1]
-    gate = state.active & _not_idle(state)
-
-    eta, lam = VU.sum_messages(
-        prior_mean=state.prior_mean, prior_sigma=state.prior_sigma,
-        dyn_f2v_eta=state.dyn_f2v_eta, dyn_f2v_lam=state.dyn_f2v_lam,
-        obs_f2v_eta=state.obs_f2v_eta, obs_f2v_lam=state.obs_f2v_lam,
-        trk_f2v_eta=state.trk_f2v_eta, trk_f2v_lam=state.trk_f2v_lam,
-        ext_inbox=state.ext_inbox,
-    )
-    upd = VU.update_beliefs(eta, lam, state.belief_mean)
-
-    belief_eta = _where_rows(gate, upd.eta, state.belief_eta)
-    belief_lam = _where_rows(gate, upd.lam, state.belief_lam)
-    belief_mean = _where_rows(gate, upd.mean, state.belief_mean)
-    updates: dict = {
-        "belief_eta": belief_eta,
-        "belief_lam": belief_lam,
-        "belief_mean": belief_mean,
-    }
-
-    if params.dynamic_enabled:
-        # dyn edge e: slot 0 <- var e, slot 1 <- var e+1
-        v_eta = torch.stack([belief_eta[:, :-1], belief_eta[:, 1:]], dim=2)
-        v_lam = torch.stack([belief_lam[:, :-1], belief_lam[:, 1:]], dim=2)
-        v_mu = torch.stack([belief_mean[:, :-1], belief_mean[:, 1:]], dim=2)
-        updates["dyn_v2f_eta"] = _where_rows(gate, v_eta - state.dyn_f2v_eta, state.dyn_v2f_eta)
-        updates["dyn_v2f_lam"] = _where_rows(gate, v_lam - state.dyn_f2v_lam, state.dyn_v2f_lam)
-        updates["dyn_v2f_mu"] = _where_rows(gate, v_mu, state.dyn_v2f_mu)
-
-    if V > 2:
-        if params.obstacle_enabled:
-            updates["obs_v2f_mu"] = _where_rows(gate, belief_mean[:, 1 : V - 1], state.obs_v2f_mu)
-        if params.tracking_enabled:
-            updates["trk_v2f_mu"] = _where_rows(gate, belief_mean[:, 1 : V - 1], state.trk_v2f_mu)
-
-    # snapshot for own inter-robot factors (the response to an always-empty
-    # inbox entry is the full belief)
-    updates["snap_eta"] = _where_rows(gate, belief_eta, state.snap_eta)
-    updates["snap_lam"] = _where_rows(gate, belief_lam, state.snap_lam)
-    updates["snap_mu"] = _where_rows(gate, belief_mean, state.snap_mu)
-    if params.interrobot_enabled:
-        updates["ir_int_seeded"] = seed_cavities(state, params, gate, comm)
-    return replace(state, **updates)
-
-
-def _external_factor_pass_receiver(
-    state: SimState, params: GbpParams, comm=LOCAL
-) -> SimState:
-    """Receiver-computes inter-robot exchange (magics_tpu
-    tick.py:_external_factor_pass_receiver): each receiver recomputes its
-    incoming messages from a row gather of the peers' snapshot tables, the
-    mirror of its own positions as held by the peer, and slot-deterministic
-    tiny offsets. "receiver" gathers the [R, V-1, 24] snapshot pack and runs
-    the sender's rank-1 maths on it (the same arithmetic, so the same
-    inboxes); "receiver_compact" gathers the compact cavity tables
-    [R, V-1, 8] (Sherman-Morrison, equal to roundoff).
-
-    Where `params.uses_kernels` holds, "receiver_compact" runs as two
-    kernels (kernels/compact_exchange.py), `_compact_exchange_kernels`.
-
-    Its four parts are marked for a captured graph's map (`profiling.part`,
-    each with its sizes R, K, V-1): `exchange.tables` (each robot's table),
-    `exchange.gather` (the gates and the peers' rows), `exchange.messages`
-    and `exchange.deliver` (the inbox and the counter)."""
-    if params.ext_exchange == "receiver_compact" and params.uses_kernels(state.device):
-        return _compact_exchange_kernels(state, params, comm)
-    R, K = state.nbr_idx.shape
-    V1 = state.prior_mean.shape[1] - 1
-    f = state.prior_mean.dtype
-    part = profiling.part
-
-    part("exchange.tables", R, K, V1)
-    if params.ext_exchange == "receiver_compact":
-        tables = F.compact_snap_tables(state.snap_mu, state.snap_eta, state.snap_lam, dtype=f)
-    else:
-        tables = torch.cat(
-            [state.snap_mu[:, 1:], state.snap_eta[:, 1:], state.snap_lam[:, 1:].reshape(R, V1, 16)],
-            dim=-1,
-        )  # [R, V1, 24]
-
-    part("exchange.gather", R, K, V1)
-    send_gate = state.active & state.antenna & _not_idle(state)
-    gate_all = comm.all_robots(send_gate)
-    src = _clip_idx(state.nbr_idx, gate_all.shape[0])
-    width = tables.shape[-1]
-    tables_all = comm.all_robots(tables).reshape(-1, V1 * width)
-    peer = _gather_rows_pinned(tables_all, src).reshape(R, K, V1, width)
-
-    part("exchange.messages", R, K, V1)
-    tiny, safety = CX.receiver_terms(src, state.nbr_back, comm.all_robots(state.radius),
-                                     params.safety_distance_multiplier, V1)
-
-    seeded = state.ir_int_seeded      # mirror: the peer's cavity is present
-    p_ext = state.ir_v2f_ext_pos      # mirror: my position as held by the peer
-    if params.ext_exchange == "receiver_compact":
-        msg = F.interrobot_rank1_messages_compact(
-            peer, seeded, p_ext, safety, tiny, params.sigma_factor_interrobot, dtype=f,
-        )
-    else:
-        s3 = seeded[..., None]
-        x_int = torch.where(s3, peer[..., 0:4], 0.0)
-        cav_eta = torch.where(s3, peer[..., 4:8], 0.0)
-        cav_lam = torch.where(s3[..., None], peer[..., 8:24].reshape(R, K, V1, 4, 4), 0.0)
-        msg = F.interrobot_rank1_messages(
-            x_int, p_ext, cav_eta, cav_lam, safety, tiny, params.sigma_factor_interrobot, dtype=f,
-        )
-
-    part("exchange.deliver", R, K, V1)
-    deliver = send_gate[:, None] & state.nbr_mask & gate_all[src] & state.nbr_has_back
-    out = replace(
-        state,
-        ext_inbox=torch.where(deliver[..., None, None], msg, state.ext_inbox),
-        iter_count_factor=state.iter_count_factor + send_gate.to(torch.int32),
-    )
-    part(None)
-    return out
-
-
-def _compact_exchange_kernels(state: SimState, params: GbpParams, comm=LOCAL) -> SimState:
-    """"receiver_compact" on the kernels' path, under the same four parts:
-    `compact_table_kernel` (the tables, the send gates and the counter) in
-    `exchange.tables`, the collectives of a `ShardComm` (none on one
-    process) in `exchange.gather`, `compact_message_kernel` (the fresh
-    inbox, reading the peers' table rows itself) in `exchange.messages`;
-    `exchange.deliver` runs nothing."""
-    R, K = state.nbr_idx.shape
-    V1 = state.prior_mean.shape[1] - 1
-    part = profiling.part
-
-    part("exchange.tables", R, K, V1)
-    tables, send_gate, count = CX.compact_tables(
-        state.snap_mu, state.snap_eta, state.snap_lam, state.active, state.antenna,
-        state.mission_active, state.completed, state.iter_count_factor)
-
-    part("exchange.gather", R, K, V1)
-    tables_all = comm.all_robots(tables)
-    gate_all = comm.all_robots(send_gate)
-    rad_all = comm.all_robots(state.radius)
-
-    part("exchange.messages", R, K, V1)
-    inbox = CX.compact_messages(
-        tables_all, send_gate, gate_all, rad_all, state.nbr_idx, state.nbr_back,
-        state.nbr_mask, state.nbr_has_back, state.ir_int_seeded, state.ir_v2f_ext_pos,
-        state.ext_inbox, params.safety_distance_multiplier, params.sigma_factor_interrobot)
-
-    part("exchange.deliver", R, K, V1)
-    out = replace(state, ext_inbox=inbox, iter_count_factor=count)
-    part(None)
-    return out
-
-
-def external_factor_pass(state: SimState, params: GbpParams, comm=LOCAL) -> SimState:
-    """Inter-robot factor update + message delivery (factorgraph.rs:719-760,
-    routing robot.rs:1803-1831). Messages are compact rank-1.
-
-    "sender": each robot computes the outbox `ir_f2v_ext` of its own
-    factors (in the kernel of kernels/ir_slot.py where
-    `params.uses_kernels` holds: by default on CUDA), and
-    each receiver gathers its inbox from the peers' outboxes by (peer,
-    reciprocal slot). The receiver exchanges recompute instead
-    (`_external_factor_pass_receiver`)."""
-    if not params.interrobot_enabled:
-        return state
-    if params.ext_exchange != "sender":
-        return _external_factor_pass_receiver(state, params, comm)
-
-    send_gate = state.active & state.antenna & _not_idle(state)  # [R]
-    inputs = IR.sender_inputs(state, params, comm)
-    sigma = params.sigma_factor_interrobot
-    if params.uses_kernels(state.device):
-        msg = IR.interrobot_slot(**inputs, sigma=sigma)
-    else:
-        msg = IR.interrobot_slot_reference(**inputs, sigma=sigma)  # [R, K, V-1, 4]
-
-    produced = send_gate[:, None] & state.nbr_mask
-    ir_f2v_ext = torch.where(produced[..., None, None], msg, state.ir_f2v_ext)
-
-    # delivery: r's inbox slot (r, k, i) receives from the factor owned by
-    # j = nbr_idx[r, k] at its reciprocal slot, where j produced this pass
-    # and r's antenna and mission gate hold
-    send_gate_all = comm.all_robots(send_gate)
-    src = _clip_idx(state.nbr_idx, send_gate_all.shape[0])
-    deliver = send_gate[:, None] & state.nbr_mask & send_gate_all[src] & state.nbr_has_back
-    in_msg = _gather_from_peer(
-        comm.all_robots(ir_f2v_ext), state.nbr_idx, state.nbr_back, state.nbr_mask
-    )
-    return replace(
-        state,
-        ir_f2v_ext=ir_f2v_ext,
-        ext_inbox=torch.where(deliver[..., None, None], in_msg, state.ext_inbox),
-        iter_count_factor=state.iter_count_factor + send_gate.to(torch.int32),
-    )
-
-
-def external_variable_pass(state: SimState, params: GbpParams, comm=LOCAL) -> SimState:
-    """Belief update + responses to external factors (factorgraph.rs:794-826,
-    routing robot.rs:1843-1858). The factor uses only the response's mean
-    position (`deliver_responses`)."""
-    if not params.interrobot_enabled:
-        return state
-
-    gate = state.active & state.antenna & _not_idle(state)
-    eta, lam = VU.sum_messages(
-        prior_mean=state.prior_mean, prior_sigma=state.prior_sigma,
-        dyn_f2v_eta=state.dyn_f2v_eta, dyn_f2v_lam=state.dyn_f2v_lam,
-        obs_f2v_eta=state.obs_f2v_eta, obs_f2v_lam=state.obs_f2v_lam,
-        trk_f2v_eta=state.trk_f2v_eta, trk_f2v_lam=state.trk_f2v_lam,
-        ext_inbox=state.ext_inbox,
-    )
-    upd = VU.update_beliefs(eta, lam, state.belief_mean)
-    belief_mean = _where_rows(gate, upd.mean, state.belief_mean)
-    return replace(
-        state,
-        belief_eta=_where_rows(gate, upd.eta, state.belief_eta),
-        belief_lam=_where_rows(gate, upd.lam, state.belief_lam),
-        belief_mean=belief_mean,
-        ir_v2f_ext_pos=deliver_responses(state, params, gate, belief_mean[:, 1:, :2], comm),
-    )
-
-
-def deliver_responses(
-    state: SimState, params: GbpParams, gate: torch.Tensor, own_pos: torch.Tensor,
-    comm=LOCAL,
-) -> torch.Tensor:
-    """`ir_v2f_ext_pos` after the external variable pass under `gate`, with
-    own_pos [R, V-1, 2] the new belief positions. The delivery condition
-    gate[r] & gate[j] & both slots alive is symmetric in (r, j). Under
-    "sender" the factor (r, k) receives j = nbr_idx[r, k]'s positions, one
-    row gather (K4) of the same positions for every reciprocal slot; under
-    the receiver exchanges the mirror of what the peer holds becomes MY
-    positions, with no gather. The mirror comes out contiguous, as the
-    compact exchange's kernels read it, whatever the layout of `own_pos`
-    (in the hot loop a view of the robots-last planes, whose strides would
-    otherwise set the `where`'s output layout)."""
-    gate_all = comm.all_robots(gate)
-    src = _clip_idx(state.nbr_idx, gate_all.shape[0])
-    deliver = gate[:, None] & state.nbr_mask & gate_all[src] & state.nbr_has_back
-    if params.ext_exchange != "sender":
-        in_pos = own_pos[:, None]
-    else:
-        in_pos = _gather_rows_pinned(comm.all_robots(own_pos), src, state.nbr_mask)
-    out = torch.empty_like(state.ir_v2f_ext_pos, memory_format=torch.contiguous_format)
-    return torch.where(deliver[..., None, None], in_pos, state.ir_v2f_ext_pos, out=out)
-
-
-def iterate_gbp(state: SimState, sdf: torch.Tensor, params: GbpParams, comm=LOCAL) -> SimState:
-    """`iterate_gbp_v2` (robot.rs:1769-1861): run the iteration schedule,
-    unrolled. Where `params.uses_kernels` holds (by default on CUDA) the
-    slots run on the hot layout through the hand-written kernels
-    (kernels/hot.py). `scan_schedule` is the JAX package's compile-size
-    knob; the slots run unrolled whatever it says."""
-    if not params.schedule:
-        return state
-    if params.uses_kernels(state.device):
-        from magics_tpu_torch.kernels.hot import iterate_gbp_hot
-
-        return iterate_gbp_hot(state, sdf, params, comm=comm)
-
-    for internal_flag, external_flag in params.schedule:
-        if internal_flag:
-            profiling.stage("gbp.internal")
-            state = internal_factor_pass(state, sdf, params)
-            state = internal_variable_pass(state, params, comm)
-        if external_flag:
-            profiling.stage("gbp.external")
-            state = external_factor_pass(state, params, comm)
-            state = external_variable_pass(state, params, comm)
-    return state
 
 
 # --------------------------------------------------------------------------
@@ -902,7 +457,7 @@ def update_message_counts(state: SimState, params: GbpParams, comm=LOCAL) -> Sim
         return state
     i32 = torch.int32
 
-    gate = (state.active & _not_idle(state)).to(i32)
+    gate = (state.active & not_idle(state)).to(i32)
     k_active = state.nbr_mask.sum(dim=1).to(i32)
 
     per_factor_msgs = 0
@@ -914,12 +469,12 @@ def update_message_counts(state: SimState, params: GbpParams, comm=LOCAL) -> Sim
         per_factor_msgs += V - 2
     internal = n_int * (gate * (2 * per_factor_msgs) + gate * k_active * (V - 1))
 
-    send_gate = (state.active & state.antenna & _not_idle(state)).to(i32)
+    send_gate = (state.active & state.antenna & not_idle(state)).to(i32)
     ext_sent = torch.zeros_like(internal)
     ext_recv = torch.zeros_like(internal)
     if params.interrobot_enabled and n_ext > 0:
         send_gate_all = comm.all_robots(send_gate)
-        src = _clip_idx(state.nbr_idx, send_gate_all.shape[0])
+        src = clip_idx(state.nbr_idx, send_gate_all.shape[0])
         produced = send_gate[:, None] * state.nbr_mask.to(i32)
         deliver = (
             (send_gate[:, None] > 0)

@@ -11,7 +11,7 @@
 //                          layout. A CUDA tensor has no layout to pin; what
 //                          those call sites need is the gather itself, so
 //                          this kernel is that gather, made through
-//                          tick._gather_rows_pinned: the sender's delivery
+//                          exchange.gather_rows_pinned: the sender's delivery
 //                          of the peers' outboxes by (peer, reciprocal
 //                          slot), its response gather of the peers' belief
 //                          positions and the receiver exchanges' gather of

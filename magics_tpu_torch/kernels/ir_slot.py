@@ -2,7 +2,8 @@
 kernel (csrc/ir_slot.cu), its plain PyTorch version and the wrappers.
 
 Counterpart of magics_tpu's kernels/ir_slot.py (the Pallas kernel
-`interrobot_slot`, wrapped by `interrobot_messages_pallas`). For every
+`interrobot_slot`); the sender exchange (graph/exchange.py) assembles its
+inputs from a state (`exchange.sender_inputs`). For every
 factor (robot r, neighbour slot k, chain position i) it computes the
 compact rank-1 message (gx, gy, t, s) to the factor's external variable
 from r's snapshot of variable i+1 (the cavity, where seeded), the external
@@ -29,7 +30,6 @@ import torch
 
 from magics_tpu_torch.graph import factors as F
 from magics_tpu_torch.kernels.build import current_stream
-from magics_tpu_torch.parallel.comm import LOCAL
 
 #: kernel launches since the last `reset_launch_counts()`
 launch_counts = {"interrobot_slot": 0}
@@ -38,22 +38,6 @@ launch_counts = {"interrobot_slot": 0}
 def reset_launch_counts() -> None:
     for name in launch_counts:
         launch_counts[name] = 0
-
-
-def sender_inputs(state, params, comm=LOCAL) -> dict:
-    """The table's inputs on the state's layout: seeded [R, K, V-1] bool,
-    p_ext [R, K, V-1, 2], the snapshots [R, V, ...] (variables 1..V-1 are
-    read), safety [R] and the global robot ids [R] in the state's dtype."""
-    R = state.nbr_idx.shape[0]
-    return dict(
-        seeded=state.ir_int_seeded,
-        p_ext=state.ir_v2f_ext_pos,
-        snap_mu=state.snap_mu,
-        snap_eta=state.snap_eta,
-        snap_lam=state.snap_lam,
-        safety=params.safety_distance_multiplier * state.radius,
-        gids=comm.row_ids(R, state.device).to(state.prior_mean.dtype),
-    )
 
 
 def interrobot_slot_reference(
@@ -174,10 +158,3 @@ def interrobot_slot(
         raise RuntimeError(f"interrobot_slot kernel launch failed: cudaError {rc}")
     launch_counts["interrobot_slot"] += 1
     return out
-
-
-def interrobot_messages(state, params, comm=LOCAL) -> torch.Tensor:
-    """The sender exchange's message table [R, K, V-1, 4] of a state
-    (the counterpart of `interrobot_messages_pallas`)."""
-    return interrobot_slot(**sender_inputs(state, params, comm),
-                           sigma=params.sigma_factor_interrobot)

@@ -9,10 +9,11 @@ so the port's kernel is the gather those call sites make:
     out[m, :] = table[idx[m], :], and 0 where mask[m] is false.
 
 It serves every call site of `layout_pin`, all through
-`tick._gather_rows_pinned`: the sender's delivery (`tick._gather_from_peer`)
-and response gather (`tick.deliver_responses`) and the receiver exchanges'
-table gathers, whatever `use_pallas` says (on the TPU the pin runs on every
-run too). The callers clip the indexes, as the JAX call sites do.
+`exchange.gather_rows_pinned` (graph/exchange.py): the sender's delivery
+(`exchange.gather_from_peer`) and response gather (the sender's
+`deliver_responses`) and the receiver exchanges' table gathers, whatever
+`use_pallas` says (on the TPU the pin runs on every run too). The callers
+clip the indexes, as the JAX call sites do.
 
 On CUDA tensors the wrapper checks device, dtype, shape and contiguity
 (`_check`, cheap tests first), allocates a fresh output, launches the

@@ -169,31 +169,6 @@ def spawn_ranks(target, n_ranks: int, args: tuple = (), *, backend: str = "gloo"
                            f"{timeout:g} s allowed)")
 
 
-def expected_launches(params, device: torch.device) -> dict[str, int]:
-    """Kernel launches a tick of `params`' schedule on `device`: one K1 per
-    internal slot and one K2 per external slot where the slot kernels run,
-    under "sender" one K3 and two row gathers (K4) per external slot,
-    under "receiver_compact" on the slot kernels' path the two
-    compact-exchange kernels (K5) per external slot and elsewhere under the
-    receiver exchanges one K4, and on the slot kernels' path one external
-    sum before the schedule and one per external slot; none on the CPU."""
-    n_int = sum(1 for i, _ in params.schedule if i)
-    n_ext = sum(1 for _, e in params.schedule if e) if params.interrobot_enabled else 0
-    slots = params.uses_kernels(device)
-    sender = params.ext_exchange == "sender"
-    cuda = device.type == "cuda"
-    compact = slots and cuda and params.ext_exchange == "receiver_compact"
-    return {
-        "internal_slot": n_int if slots else 0,
-        "variable_slot": n_ext if slots else 0,
-        "interrobot_slot": n_ext if slots and sender else 0,
-        "gather_rows": (2 if sender else 0 if compact else 1) * n_ext if cuda else 0,
-        "ext_sum": (bool(params.schedule) + n_ext) if slots and cuda else 0,
-        "compact_table": n_ext if compact else 0,
-        "compact_message": n_ext if compact else 0,
-    }
-
-
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -233,24 +208,17 @@ def timed_ticks(step, state, sdf, n_ticks: int, comm, device, generator=None):
     }
 
 
-def exchange_table_shape(params) -> tuple[int, ...]:
-    """The per-robot shape of the table the external pass all_gathers:
-    the sender's outbox [K, V-1, 4], the receiver's snapshot pack
-    [V-1, 24], receiver_compact's cavity tables [V-1, 8]."""
-    V1 = params.n_vars - 1
-    return {"sender": (params.n_slots, V1, 4), "receiver": (V1, 24),
-            "receiver_compact": (V1, 8)}[params.ext_exchange]
-
-
 def exchange_model_bytes(params, n_robots: int) -> int:
     """The traffic model of magics_tpu bench/multichip_cost.py:14-18, a
     tick: per external pass the exchange's table for all R robots,
     16 R K (V-1) bytes under "sender", 32 R (V-1) under "receiver_compact"
     (float32)."""
+    from magics_tpu_torch.graph.exchange import exchange_of
+
     n_ext = sum(1 for _, e in params.schedule if e) if params.interrobot_enabled else 0
     itemsize = torch.empty((), dtype=params.dtype).element_size()
     per_robot = 1
-    for d in exchange_table_shape(params):
+    for d in exchange_of(params).table_shape(params):
         per_robot *= d
     return n_ext * n_robots * per_robot * itemsize
 
@@ -258,7 +226,9 @@ def exchange_model_bytes(params, n_robots: int) -> int:
 def exchange_bytes(counting, params, n_ticks: int = 1) -> float:
     """Bytes a tick of the all_gathers of the exchange's table, from a
     CountingComm's tally over `n_ticks` ticks."""
-    shape = exchange_table_shape(params)
+    from magics_tpu_torch.graph.exchange import exchange_of
+
+    shape = exchange_of(params).table_shape(params)
     return sum(b for (_, op, _, s), b in counting.bytes.items()
                if op == "all_gather" and s[1:] == shape) / n_ticks
 
@@ -337,6 +307,7 @@ def main(argv=None) -> int:
     rank, world, device = initialize(args.backend, args.platform)
 
     from magics_tpu_torch.graph import tick as T
+    from magics_tpu_torch.graph.gbp import expected_launches
     from magics_tpu_torch.parallel.comm import LOCAL, CountingComm, ShardComm
     from magics_tpu_torch.parallel.shard_tick import gather_state, make_shard_step, shard_state
 

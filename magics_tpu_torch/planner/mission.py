@@ -29,7 +29,8 @@ import numpy as np
 import torch
 
 from magics_tpu_torch.graph.state import GbpParams, SimState
-from magics_tpu_torch.graph.tick import _exp
+from magics_tpu_torch.graph.exchange import EXCHANGES
+from magics_tpu_torch.graph.masks import expand_mask
 
 
 @dataclasses.dataclass
@@ -235,7 +236,6 @@ def apply_plans(
     variable reset (reset_variables semantics: endpoint priors pinned at
     1e30, interior free; belief = prior), every factor inbox emptied, and
     tracking factors timed out for `timeout` passes."""
-    R, V = state.prior_mean.shape[:2]
     f = state.prior_mean.dtype
     eye = torch.eye(4, dtype=f, device=state.device)
     sigma = state.prior_sigma  # [R, V] — pins are positional, unchanged
@@ -282,24 +282,10 @@ def apply_plans(
         active=torch.ones_like(state.active),
     )
     out = {
-        k: torch.where(_exp(mask, v.ndim - 1), v.to(getattr(state, k).dtype), getattr(state, k))
+        k: torch.where(expand_mask(mask, v.ndim - 1), v.to(getattr(state, k).dtype),
+                       getattr(state, k))
         for k, v in upd.items()
     }
-    # inter-robot factor-inbox reset. Sender mode: the arrived robot's own
-    # rows hold its factors' state — zero them under `mask`. Receiver mode
-    # (graph/state.py mirror semantics): the arrived robot's factor inboxes
-    # and seeded flags are MIRRORED on the rows of every peer whose slot
-    # points at it — zero those instead; the robot's own rows (its position
-    # as held by peers) stay, matching the reference (peers keep the stale
-    # linearisation point until the next delivery).
-    if ext_exchange == "sender":
-        for k in ("ir_int_seeded", "ir_v2f_ext_pos", "ir_f2v_ext"):
-            v = getattr(state, k)
-            out[k] = torch.where(_exp(mask, v.ndim - 1), torch.zeros_like(v), v)
-    else:
-        src = state.nbr_idx.clamp(0, R - 1).long()
-        peer_arrived = mask[src] & state.nbr_mask  # [R, K]
-        for k in ("ir_int_seeded", "ir_v2f_ext_pos"):
-            v = getattr(state, k)
-            out[k] = torch.where(_exp(peer_arrived, v.ndim - 2), torch.zeros_like(v), v)
+    # the inter-robot fields: the exchange's own reset (graph/exchange.py)
+    out.update(EXCHANGES[ext_exchange].reset_arrived(state, mask))
     return dataclasses.replace(state, **out)

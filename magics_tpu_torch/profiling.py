@@ -13,7 +13,7 @@ turns it on: a CUDA-only trace would count such a range as a device
 operation.
 
 **Stage maps.** While `compile_ticks` captures a chunk, `stage(name)` marks
-where each stage of the tick begins (graph/tick.py:step, kernels/hot.py);
+where each stage of the tick begins (graph/tick.py:step, graph/gbp.py);
 the mark reads the capture's current node and adds nothing to the graph.
 The capture's `StageMap` gives each stage's first device operation, in the
 order a replay runs them; `stage_device_ms` splits a profiled replay's
@@ -446,7 +446,7 @@ def capture_recorder(device: torch.device):
 #: generator's seed and offset fills
 OUTSIDE_GRAPH = ("FillFunctor",)
 
-#: the slot kernels and the stage each runs in (kernels/hot.py)
+#: the slot kernels and the stage each runs in (graph/gbp.py:iterate_gbp_hot)
 SLOT_STAGES = {"internal_slot_kernel": "gbp.internal", "variable_slot_kernel": "gbp.external",
                "interrobot_slot_kernel": "gbp.external", "gather_rows_kernel": "gbp.external",
                "compact_table_kernel": "gbp.external", "compact_message_kernel": "gbp.external"}

@@ -14,8 +14,8 @@ warm-up chunks; cudaLaunchKernel calls, device time per tick and each
 kernel's device time per launch from a 2-tick torch.profiler window). Under
 "sender" it adds the internal-slot, variable-slot and row-gather wrappers'
 host time per call over 10 ticks (no synchronisation, so their host work alone) and 10
-ticks with synchronised host timers around each phase of the hot loop (ms
-per tick). Last, the variable-slot kernel and the row gather alone on
+ticks with synchronised host timers around each phase of the hot loop
+(graph/gbp.py and the exchange's steps, graph/exchange.py; ms per tick). Last, the variable-slot kernel and the row gather alone on
 chip_smoke.py's inputs, in repeated calls and with L2 flushed before each
 (`kernels_alone`).
 
@@ -57,8 +57,9 @@ def measure(tree: Path) -> dict:
 
     import magics_tpu_torch
     from magics_tpu_torch.graph import factors as F
+    from magics_tpu_torch.graph import exchange as EX
+    from magics_tpu_torch.graph import gbp as GBP
     from magics_tpu_torch.graph import tick as T
-    from magics_tpu_torch.kernels import hot as HOT
 
     if Path(magics_tpu_torch.__file__).resolve().parents[1] != tree.resolve():
         raise RuntimeError(f"imported {magics_tpu_torch.__file__}, not the checkout {tree}")
@@ -84,16 +85,17 @@ def measure(tree: Path) -> dict:
             for k in KERNELS
         }
         if exchange == "sender":
-            rec, restore = prof.host_timers([(HOT, "internal_slot"), (HOT, "variable_slot"),
-                                    (T, "gather_rows")], sync=False)
+            rec, restore = prof.host_timers([(GBP, "internal_slot"), (GBP, "variable_slot"),
+                                             (EX, "gather_rows")], sync=False)
             state = T.run_ticks(state, sdf, params, 10)
             torch.cuda.synchronize()
             restore()
             for name, (calls, secs) in rec.items():
                 res[f"{name}_wrapper_host_ms_per_call"] = 1e3 * secs / calls
-            phases = [(F, "obstacle_taps"), (HOT, "internal_slot"), (HOT, "variable_slot"),
-                      (T, "external_factor_pass"), (HOT, "_ext_sum_hot"),
-                      (T, "seed_cavities"), (T, "deliver_responses"),
+            ex = EX.exchange_of(params)
+            phases = [(F, "obstacle_taps"), (GBP, "internal_slot"), (GBP, "variable_slot"),
+                      (GBP, "external_factor_pass"), (GBP, "_ext_sum_hot"),
+                      (ex, "seed_cavities"), (ex, "deliver_responses"),
                       (T, "update_connectivity")]
             rec, restore = prof.host_timers(phases, sync=True)
             torch.cuda.synchronize()

@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from magics_tpu_torch.core.timesteps import device_timesteps
 from magics_tpu_torch.graph import chunk as C
 from magics_tpu_torch.graph import tick as TT
 from magics_tpu_torch.sim import builder as TB
@@ -74,11 +75,11 @@ def test_cached_timesteps_outlive_other_keys():
     same tensor however many other (timesteps, dtype, device) keys come
     after it."""
     params, state, _ = _scenario()
-    first = TT._timesteps(params, state.t0.dtype, state.device)
+    first = device_timesteps(params, state.t0.dtype, state.device)
     for k in range(100):
         other = dataclasses.replace(params, variable_timesteps=tuple(range(k + 2)))
-        TT._timesteps(other, torch.float64, state.device)
-    assert TT._timesteps(params, state.t0.dtype, state.device) is first
+        device_timesteps(other, torch.float64, state.device)
+    assert device_timesteps(params, state.t0.dtype, state.device) is first
 
 
 def _forbid_host_traffic(monkeypatch):

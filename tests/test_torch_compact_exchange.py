@@ -12,7 +12,7 @@ discrete outputs equal. In float32 both frameworks stray from the float64
 result by up to 5.5e-4 of scale on these inputs' ill-conditioned cavities
 (the 4x4 inverse amplifies roundoff, and XLA fuses and orders its float
 operations its own way), and from each other by up to 5.2e-4. Then the kernels' path of one tick's
-exchange on the CPU bit-equal to the plain path (tick.py), and the
+exchange on the CPU bit-equal to the plain path (graph/exchange.py), and the
 wrappers refusing a device without the kernels, a wrong dtype or shape.
 """
 
@@ -31,6 +31,7 @@ import torch
 from test_torch_exchange import _kw, _specs
 
 from magics_tpu.graph import factors as JF
+from magics_tpu_torch.graph import gbp as GBP
 from magics_tpu_torch.graph import tick as T
 from magics_tpu_torch.kernels import compact_exchange as CX
 from magics_tpu_torch.sim import builder as TB
@@ -167,13 +168,12 @@ def _pass_state(seed: int):
 
 @pytest.mark.parametrize("seed", [0, 1])
 def test_kernel_path_pass_bit_equal_to_plain_pass(seed):
-    """`_external_factor_pass_receiver` through the wrappers
-    (`use_pallas=True`: their plain versions on the CPU) against the plain
-    pass (`use_pallas=False`, the row gather and the plain maths): every
-    field bit for bit, some messages live."""
+    """The exchange's pass on the kernels' path (the wrappers: their plain
+    versions on the CPU) against its plain path (the row gather and the
+    plain maths): every field bit for bit, some messages live."""
     params, state = _pass_state(seed)
-    got = T.external_factor_pass(state, dataclasses.replace(params, use_pallas=True))
-    want = T.external_factor_pass(state, params)
+    got = GBP.external_factor_pass(state, params, kernels=True)
+    want = GBP.external_factor_pass(state, params)
     assert not _smoke().differing_fields(torch, got, want)
     assert not torch.equal(want.ext_inbox, state.ext_inbox)
     assert torch.equal(want.iter_count_factor - state.iter_count_factor,

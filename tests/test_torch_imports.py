@@ -69,6 +69,76 @@ def test_the_scan_sees_forbidden_imports(tmp_path):
     assert not _forbidden("magics_tpu_torch.core.schedule")
 
 
+PORT = REPO / "magics_tpu_torch"
+KERNEL_SOURCES = sorted((PORT / "kernels").glob("*.py"))
+# the layers above the kernels: the tick chain, the GBP schedule, the
+# exchange, the chunk runner, the shell, the launcher and the planner
+ABOVE_KERNELS = tuple(f"magics_tpu_torch.{m}" for m in (
+    "graph.tick", "graph.gbp", "graph.exchange", "graph.chunk", "sim", "parallel", "planner"))
+
+
+def _imported_modules(path: Path) -> set[str]:
+    """`_imported`, plus `m.name` for every `from m import name`, so that a
+    module imported from its package (`from pkg import mod`) is named."""
+    names = _imported(path)
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            names.update(f"{node.module}.{a.name}" for a in node.names)
+    return names
+
+
+def _under(name: str, prefixes) -> bool:
+    return any(name == p or name.startswith(p + ".") for p in prefixes)
+
+
+@pytest.mark.parametrize("path", KERNEL_SOURCES, ids=lambda p: str(p.relative_to(REPO)))
+def test_kernels_import_nothing_above_them(path):
+    """kernels/ is a leaf below graph/: no module of it imports the tick,
+    the GBP schedule, the exchange, the chunk runner, sim, parallel or
+    planner, lazily or not."""
+    bad = sorted(n for n in _imported_modules(path) if _under(n, ABOVE_KERNELS))
+    assert not bad, f"{path.relative_to(REPO)} imports {bad}"
+
+
+def test_tick_imports_no_kernel_module():
+    bad = sorted(n for n in _imported_modules(PORT / "graph" / "tick.py")
+                 if _under(n, ("magics_tpu_torch.kernels",)))
+    assert not bad, bad
+
+
+def _compares(path: Path, name: str) -> bool:
+    """Whether a comparison of `path` has `name` (a variable or an
+    attribute) on either side."""
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Compare):
+            for side in (node.left, *node.comparators):
+                if (isinstance(side, ast.Attribute) and side.attr == name) or (
+                        isinstance(side, ast.Name) and side.id == name):
+                    return True
+    return False
+
+
+def test_only_the_exchange_compares_the_exchange_mode(tmp_path):
+    """Every decision that depends on `ext_exchange` is graph/exchange.py's;
+    graph/state.py validates the name it is given."""
+    found = sorted(str(p.relative_to(PORT)) for p in PORT.rglob("*.py")
+                   if _compares(p, "ext_exchange"))
+    assert set(found) <= {"graph/exchange.py", "graph/state.py"}, found
+    assert "graph/state.py" in found
+    src = tmp_path / "m.py"
+    src.write_text("def f(p, ext_exchange):\n    return p.ext_exchange != 'sender' or "
+                   "ext_exchange in ('receiver',)\n")
+    assert _compares(src, "ext_exchange")
+
+
+def test_only_the_gbp_schedule_asks_for_the_kernel_path():
+    """`params.uses_kernels` is read in graph/gbp.py alone (and defined in
+    graph/state.py); the exchange gets the path as an argument."""
+    found = sorted(str(p.relative_to(PORT)) for p in PORT.rglob("*.py")
+                   if "uses_kernels(" in p.read_text())
+    assert found == ["graph/gbp.py", "graph/state.py"], found
+
+
 def test_imports_load_no_jax_package():
     """Every module of the port and every module chip_smoke.py names, in a
     fresh interpreter: nothing of JAX or of magics_tpu ends in sys.modules,

@@ -25,6 +25,7 @@ from test_ir_slot import _evolved_state, _xla_messages
 
 from magics_tpu.kernels.ir_slot import interrobot_messages_pallas
 from magics_tpu_torch import convert
+from magics_tpu_torch.graph.exchange import sender_inputs
 from magics_tpu_torch.kernels import ir_slot as IR
 
 TOL = {jnp.float64: dict(rtol=1e-12, atol=1e-12), jnp.float32: dict(rtol=2e-5, atol=2e-5)}
@@ -37,9 +38,15 @@ def evolved(request):
     return request.param, jparams, jstate, convert.params_from_jax(jparams), convert.state_from_numpy(arrays, device="cpu")
 
 
+def _messages(tparams, tstate) -> torch.Tensor:
+    """The sender exchange's message table of a state, through the wrapper."""
+    return IR.interrobot_slot(**sender_inputs(tstate, tparams),
+                              sigma=tparams.sigma_factor_interrobot)
+
+
 def _port_table(tparams, tstate) -> np.ndarray:
     before = dict(IR.launch_counts)
-    msg = IR.interrobot_messages(tstate, tparams)
+    msg = _messages(tparams, tstate)
     assert IR.launch_counts == before   # the CPU runs the plain version, no launch
     return msg.numpy()
 
@@ -67,7 +74,7 @@ def test_unseeded_slots_emit_nothing_but_skips(evolved):
     """An unseeded slot's cavity is empty, so M = alpha g g^T has rank at
     most 1 and the det guard empties the message."""
     _, _, _, tparams, tstate = evolved
-    msg = IR.interrobot_messages(tstate, tparams)
+    msg = _messages(tparams, tstate)
     unseeded = ~tstate.ir_int_seeded & tstate.nbr_mask[..., None]
     assert bool(unseeded.any())
     assert bool((msg[unseeded] == 0).all())
@@ -75,6 +82,6 @@ def test_unseeded_slots_emit_nothing_but_skips(evolved):
 
 def test_wrapper_refuses_other_devices(evolved):
     _, _, _, tparams, tstate = evolved
-    inputs = {k: v.to("meta") for k, v in IR.sender_inputs(tstate, tparams).items()}
+    inputs = {k: v.to("meta") for k, v in sender_inputs(tstate, tparams).items()}
     with pytest.raises(ValueError, match="device"):
         IR.interrobot_slot(**inputs, sigma=tparams.sigma_factor_interrobot)

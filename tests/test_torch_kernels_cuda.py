@@ -43,6 +43,8 @@ import numpy as np
 import pytest
 import torch
 
+from magics_tpu_torch.core.timesteps import device_timesteps
+from magics_tpu_torch.graph import exchange as EX
 from magics_tpu_torch.graph import factors as F
 from magics_tpu_torch.graph import tick as T
 from magics_tpu_torch.kernels import compact_exchange as CX
@@ -334,7 +336,7 @@ def sender_inputs(device):
     other variable (tests/test_ir_slot.py) so the empty-cavity guard runs."""
     params, state, sdf = crossing(device, "sender")
     state = T.run_ticks(state, sdf, params, 12)
-    inputs = IR.sender_inputs(state, params)
+    inputs = EX.sender_inputs(state, params)
     inputs["seeded"] = inputs["seeded"].clone()
     inputs["seeded"][::3, :, ::2] = False
     return inputs, params.sigma_factor_interrobot
@@ -755,7 +757,7 @@ def test_graph_replay_outlives_other_cached_constants(device):
     graph = compile_ticks(state, sdf, params, 2)
     for k in range(40):
         other = replace(params, variable_timesteps=tuple(range(k + 2)))
-        T._timesteps(other, torch.float32, state.device)
+        device_timesteps(other, torch.float32, state.device)
         del other
         churn = torch.full((4096,), float(k), device=device)
         del churn
@@ -835,7 +837,7 @@ def test_interrobot_kernel_at_scale_shapes(scale_states):
     4.9 m spacing leaves no factor inside the 4.4 m safety distance yet),
     every third robot's cavities unseeded on every other variable."""
     params, state, _ = scale_states["sender"]
-    inputs = IR.sender_inputs(state, params)
+    inputs = EX.sender_inputs(state, params)
     R, K, V1 = inputs["seeded"].shape
     assert (R, K, V1) == (16384, 24, 20)
     inputs["seeded"] = inputs["seeded"].clone()
@@ -1093,7 +1095,8 @@ def test_two_gloo_ranks_on_the_card_bit_equal_to_one_process(device, exchange, t
 
     import torch_shard_cases as C
     from magics_tpu_torch.bench.scale import scale_scenario
-    from magics_tpu_torch.parallel.launch import expected_launches, spawn_ranks
+    from magics_tpu_torch.graph.gbp import expected_launches
+    from magics_tpu_torch.parallel.launch import spawn_ranks
 
     out = tmp_path / "rank0.pt"
     spawn_ranks(C.run_card_case, 2, (exchange, str(out)), backend="gloo", timeout=300)

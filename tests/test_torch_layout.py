@@ -1,5 +1,5 @@
-"""The row gather (magics_tpu_torch/kernels/layout.py) and the tick's gather
-helpers built on it, against magics_tpu's `_gather_from_peer` and
+"""The row gather (magics_tpu_torch/kernels/layout.py) and the exchange's
+gather helpers built on it (graph/exchange.py), against magics_tpu's `_gather_from_peer` and
 `_gather_rows_pinned` (their `layout_pin` is the identity on the CPU), on
 seeded tables with masked slots and indexes the callers must clip (-1 for a
 dead slot, and past the table's end). A gather moves values without
@@ -15,7 +15,7 @@ import pytest
 import torch
 
 from magics_tpu.graph import tick as JT
-from magics_tpu_torch.graph import tick as TT
+from magics_tpu_torch.graph import exchange as EX
 from magics_tpu_torch.kernels import layout as L
 
 R, K, V1 = 9, 5, 7
@@ -40,7 +40,7 @@ def test_gather_from_peer_matches_jax(tables, dtype):
     arr, nbr_idx, back, mask = tables
     arr = arr.astype(dtype)
     want = np.asarray(jax.jit(JT._gather_from_peer)(*map(jnp.asarray, (arr, nbr_idx, back, mask))))
-    got = TT._gather_from_peer(*map(_t, (arr, nbr_idx, back, mask))).numpy()
+    got = EX.gather_from_peer(*map(_t, (arr, nbr_idx, back, mask))).numpy()
     assert got.dtype == want.dtype
     np.testing.assert_array_equal(got, want)
     assert (got == 0).all(axis=(2, 3))[~mask].all() and (got != 0).any()
@@ -51,18 +51,18 @@ def test_gather_rows_pinned_matches_jax(tables):
     pack = arr.reshape(R, -1)                             # [R, K * V1 * 4]
     src = np.clip(nbr_idx, 0, R - 1)                      # clipped by the caller
     want = np.asarray(jax.jit(JT._gather_rows_pinned)(jnp.asarray(pack), jnp.asarray(src)))
-    got = TT._gather_rows_pinned(_t(pack), _t(src)).numpy()
+    got = EX.gather_rows_pinned(_t(pack), _t(src)).numpy()
     np.testing.assert_array_equal(got, want)
 
 
 def test_gather_robot_matches_jax(tables):
-    """The per-robot gather the sender's seeding and horizon responses use
-    (plain indexing in both packages)."""
+    """The per-robot gather the sender's seeding of new factors uses (plain
+    indexing in both packages)."""
     arr, nbr_idx, _, mask = tables
     pos = arr[:, 0, :, :2]                                # [R, V1, 2]
     args = (pos, nbr_idx, mask)
     want = np.asarray(jax.jit(JT._gather_robot)(*map(jnp.asarray, args)))
-    np.testing.assert_array_equal(TT._gather_robot(*map(_t, args)).numpy(), want)
+    np.testing.assert_array_equal(EX.gather_robot(*map(_t, args)).numpy(), want)
 
 
 @pytest.mark.parametrize(
