@@ -410,17 +410,33 @@ def variable_slot_bytes(torch, h: dict, out: dict) -> int:
 
 
 def interrobot_bytes(inputs: dict, live, out) -> int:
-    """The bytes the message table must move at these inputs, `live` [R, K,
-    V1] marking the seeded factors within the safety distance: every slot's
-    seeded flag; the peer position of a seeded slot (an unseeded one gives
-    an empty message whatever); the own position (x, y) of a chain position
-    with a seeded slot, its cavity (eta, precision) where one is live; the
-    safety distance of a robot with a seeded slot, its id where one is live;
-    every message written once."""
-    seeded = inputs["seeded"]
-    return (seeded.numel() + 8 * int(seeded.sum()) + 8 * int(seeded.any(dim=1).sum())
-            + 80 * int(live.any(dim=1).sum()) + 4 * int(seeded.flatten(1).any(dim=1).sum())
+    """The bytes the new outbox must move at these inputs (K3's select
+    among them), `live` [R, K, V1] marking the taken seeded factors within
+    the safety distance: the send gates and the slot mask; every taken
+    factor's seeded flag, every other's old entry; the peer position of a
+    taken seeded slot (an unseeded one gives an empty message whatever); the
+    own position (x, y) of a chain position with such a slot, its cavity
+    (eta, precision) where one is live; the safety distance of a robot with
+    such a slot, its id where one is live; every entry written once."""
+    taken = (inputs["send_gate"][:, None] & inputs["nbr_mask"])[..., None].expand_as(live)
+    seeded = inputs["seeded"] & taken
+    n_taken = int(taken.sum())
+    return (nbytes([inputs["send_gate"], inputs["nbr_mask"]]) + n_taken
+            + 16 * (taken.numel() - n_taken) + 8 * int(seeded.sum())
+            + 8 * int(seeded.any(dim=1).sum()) + 80 * int(live.any(dim=1).sum())
+            + 4 * int(seeded.flatten(1).any(dim=1).sum())
             + 4 * int(live.flatten(1).any(dim=1).sum()) + nbytes([out]))
+
+
+def gather_bytes(tab, idx, m, old, out) -> int:
+    """The bytes a row gather must move: the distinct table rows it reads
+    (of the rows the mask takes where masked; a row gathered twice is read
+    once), the old rows it keeps, the rows written, the index and the mask."""
+    read = idx if m is None else idx[m]
+    row = tab.shape[1] * tab.element_size()
+    kept = 0 if old is None else int((~m).sum()) * row
+    return (int(read.unique().numel()) * row + kept + nbytes([out, idx])
+            + (nbytes([m]) if m is not None else 0))
 
 
 def timed(torch, name: str, kernel, plain, kernel_name: str, nb: int, ops: float,
@@ -541,6 +557,31 @@ def gather_sites(torch, state) -> dict:
     }
 
 
+def sender_selects(torch, state) -> dict:
+    """The sender's two gathers as its exchange calls them, {site:
+    (deliver, old)} beside `gather_sites`' tables and indexes: the slots
+    delivered under the state's send gates, and the rows kept elsewhere, the
+    state's inbox [R*K, V1*4] and response positions [R*K, V1*2]."""
+    from magics_tpu_torch.graph import exchange as EX
+
+    R, K = state.nbr_idx.shape
+    _, deliver = EX._delivered(state, EX.sender_gate(state), EX.LOCAL)
+    d = deliver.reshape(-1)
+    return {"sender delivery": (d, state.ext_inbox.reshape(R * K, -1).contiguous()),
+            "sender response": (d, state.ir_v2f_ext_pos.reshape(R * K, -1).contiguous())}
+
+
+def gather_select_bits(torch, tab, idx, d, old, label: str):
+    """The row gather with old rows against the plain select it replaced,
+    `where(deliver, index_select, old)`, bit for bit; returns its output."""
+    from magics_tpu_torch.kernels import layout as L
+
+    got = L.gather_rows(tab, idx, d, old)
+    if not bits_equal(torch, got, L.gather_rows_reference(tab, idx, d, old)):
+        raise AssertionError(f"gather_rows {label} with old rows: differs from the select")
+    return got
+
+
 def kernel_phase(torch, device) -> dict:
     from dataclasses import replace
 
@@ -623,16 +664,30 @@ def kernel_phase(torch, device) -> dict:
     return results
 
 
+def every_factor_taken(torch, inputs: dict) -> dict:
+    """K3's select inputs that take every factor of `inputs`
+    (exchange.sender_inputs), so that it writes the whole message table:
+    every send gate and slot on, an old outbox of NaNs that no entry keeps."""
+    R, K, V1 = inputs["seeded"].shape
+    dev = inputs["seeded"].device
+    return dict(old=torch.full((R, K, V1, 4), float("nan"), dtype=inputs["snap_mu"].dtype,
+                               device=dev),
+                send_gate=torch.ones(R, dtype=torch.bool, device=dev),
+                nbr_mask=torch.ones((R, K), dtype=torch.bool, device=dev))
+
+
 def interrobot_compare(torch, inputs: dict, sigma: float, label: str) -> tuple:
-    """The inter-robot message table against its plain version on `inputs`
-    (exchange.sender_inputs): finite, no entry zero in one and not the other,
-    each live message within IR_RTOL of its own scale, some message live.
-    Returns the kernel's table and the largest absolute error."""
+    """The inter-robot message table (every factor taken) against its plain
+    version on `inputs` (exchange.sender_inputs): finite, no entry zero in
+    one and not the other, each live message within IR_RTOL of its own
+    scale, some message live. Returns the kernel's table and the largest
+    absolute error."""
     from magics_tpu_torch.kernels import ir_slot as IR
 
     R, K, V1 = inputs["seeded"].shape
-    got = IR.interrobot_slot(**inputs, sigma=sigma)
-    want = IR.interrobot_slot_reference(**inputs, sigma=sigma)
+    taken = every_factor_taken(torch, inputs)
+    got = IR.interrobot_slot(**inputs, sigma=sigma, **taken)
+    want = IR.interrobot_slot_reference(**inputs, sigma=sigma, **taken)
     torch.cuda.synchronize()
     if not bool(torch.isfinite(got).all()):
         raise AssertionError("interrobot_slot: non-finite messages")
@@ -652,6 +707,22 @@ def interrobot_compare(torch, inputs: dict, sigma: float, label: str) -> tuple:
     return got, abs_err
 
 
+def interrobot_select_bits(torch, inputs: dict, select: dict, table, sigma: float,
+                           label: str):
+    """K3 given `select` (the old outbox, the send gates, the slot mask)
+    against the plain select it replaced, `where(gate & mask, table, old)`
+    with `table` its own every-factor table, bit for bit. Returns its output."""
+    from magics_tpu_torch.kernels import ir_slot as IR
+
+    got = IR.interrobot_slot(**inputs, sigma=sigma, **select)
+    taken = select["send_gate"][:, None] & select["nbr_mask"]
+    if not bits_equal(torch, got, torch.where(taken[..., None, None], table, select["old"])):
+        raise AssertionError(f"interrobot_slot {label}: the select differs from the `where`")
+    log(f"[kernels] interrobot_slot {label}: the select bit-equal to the `where` it replaced "
+        f"({int(taken.sum())} of {taken.numel()} slots taken)")
+    return got
+
+
 def interrobot_check(torch, state, params, label: str) -> dict:
     """The inter-robot message table against its plain version on a
     sender-mode bench state, and its times. With label "synthetic" (the
@@ -662,8 +733,11 @@ def interrobot_check(torch, state, params, label: str) -> dict:
     seeded random point within 1.2 safety distances of its internal
     snapshot, so the live path, the skip and the guards all run on many
     entries; otherwise the state's own inputs are taken as the main path
-    gives them."""
-    from magics_tpu_torch.graph.exchange import sender_inputs
+    gives them. Then the select: K3 with the state's old outbox, send
+    gates and slot mask, as the exchange calls it, and with gates and
+    masks that keep whole blocks, each bit-equal to the `where` it
+    replaced; the call the exchange makes is timed and bounded."""
+    from magics_tpu_torch.graph.exchange import sender_gate, sender_inputs
     from magics_tpu_torch.kernels import ir_slot as IR
 
     inputs = sender_inputs(state, params)
@@ -680,18 +754,32 @@ def interrobot_check(torch, state, params, label: str) -> dict:
         offset = torch.stack([dist * torch.cos(angle), dist * torch.sin(angle)], dim=-1)
         inputs["p_ext"] = (state.snap_mu[:, None, 1:, :2] + offset).contiguous()
     sigma = params.sigma_factor_interrobot
-    got, abs_err = interrobot_compare(torch, inputs, sigma, label)
-    # the kernel does the arithmetic only for seeded factors within the
-    # safety distance (the others are empty whatever it gives), so the
-    # bound counts the bytes and operations of this input's live factors. On
-    # the main path its inputs were written slots before, past 24 MB of K1
-    # traffic per internal slot: it finds them cold, and is timed so
+    table, abs_err = interrobot_compare(torch, inputs, sigma, label)
+    g = torch.Generator(device=state.device).manual_seed(3)
+    gate = torch.rand(R, generator=g, device=state.device) > 0.3
+    mask = torch.rand((R, K), generator=g, device=state.device) > 0.5
+    gate[::5], mask[::5] = True, True   # whole blocks taken
+    gate[::7] = False                   # and kept
+    interrobot_select_bits(torch, inputs, dict(old=state.ir_f2v_ext, send_gate=gate,
+                                               nbr_mask=mask), table, sigma,
+                           f"{label} mixed gates")
+    select = dict(old=state.ir_f2v_ext, send_gate=sender_gate(state), nbr_mask=state.nbr_mask)
+    got = interrobot_select_bits(torch, inputs, select, table, sigma, f"{label} as called")
+    # the kernel does the arithmetic only for taken seeded factors within
+    # the safety distance (the others are empty or kept whatever it gives),
+    # so the bound counts the bytes and operations of this input's live
+    # factors. On the main path its inputs were written slots before, past
+    # 24 MB of K1 traffic per internal slot: it finds them cold, and is
+    # timed so
+    inputs.update(select)
+    taken = (select["send_gate"][:, None] & select["nbr_mask"])[..., None]
     x = torch.where(seeded[..., None], inputs["snap_mu"][:, None, 1:, :2], 0.0) - inputs["p_ext"]
     safety2 = (inputs["safety"] * inputs["safety"])[:, None, None]
-    live = seeded & ((x * x).sum(dim=-1) < safety2)
+    live = seeded & taken & ((x * x).sum(dim=-1) < safety2)
     n_work = int(live.sum())
     return {"max_abs_err": abs_err,
-            **timed(torch, f"interrobot_slot {label} ({n_work} factors in range and seeded)",
+            **timed(torch, f"interrobot_slot {label} as called ({n_work} factors taken, "
+                    f"in range and seeded)",
                     lambda: IR.interrobot_slot(**inputs, sigma=sigma),
                     lambda: IR.interrobot_slot_reference(**inputs, sigma=sigma),
                     "interrobot_slot_kernel", interrobot_bytes(inputs, live, got),
@@ -704,7 +792,10 @@ def gather_check(torch, state) -> dict:
     random tables: the sender's delivery of the peers' outboxes [R*K, V1*4],
     its response gather of the peers' positions [R, V1*2], the receiver's
     gather of the peers' snapshot packs [R, V1*24] and receiver_compact's
-    gather of the peers' compact tables [R, V1*8]. Each shape is timed in
+    gather of the peers' compact tables [R, V1*8]. The sender's two are
+    also checked as its exchange calls them, with the delivered slots and
+    the old rows (`sender_selects`), against the `where` that call
+    replaced; that call is the one timed there. Each shape is timed in
     repeated calls and with L2 flushed before each, beside `index_select`'s
     own device time (torch.profiler) and call time (CUDA events) on the same
     inputs. Returns the delivery's results (the main path's largest) with
@@ -713,6 +804,7 @@ def gather_check(torch, state) -> dict:
     from magics_tpu_torch.profiling import call_device_us
 
     shapes = {}
+    selects = sender_selects(torch, state)
     for site, (tab, idx, m) in gather_sites(torch, state).items():
         got = L.gather_rows(tab, idx, m)
         want = L.gather_rows_reference(tab, idx, m)
@@ -722,17 +814,18 @@ def gather_check(torch, state) -> dict:
         log(f"[kernels] gather_rows {site} [{tab.shape[0]}, {tab.shape[1]}] -> "
             f"[{idx.shape[0]}, {tab.shape[1]}] {'masked' if m is not None else 'unmasked'}: "
             f"bit-equal")
-        # bytes: the distinct rows read (of the live entries where masked;
-        # a row gathered twice is read once), the rows written, the index
-        # and the mask
-        read = idx if m is None else idx[m]
-        row = tab.shape[1] * tab.element_size()
-        nb = int(read.unique().numel()) * row + nbytes([got, idx]) + (
-            nbytes([m]) if m is not None else 0)
+        old = None
+        if site in selects:
+            m, old = selects[site]
+            got = gather_select_bits(torch, tab, idx, m, old, site)
+            log(f"[kernels] gather_rows {site} with the delivered slots and old rows: "
+                f"bit-equal to the select ({int(m.sum())} of {m.numel()} rows delivered)")
+        nb = gather_bytes(tab, idx, m, old, got)
         library = lambda: tab.index_select(0, idx)   # noqa: E731
-        t = timed(torch, f"gather_rows {site}", lambda: L.gather_rows(tab, idx, m),
-                  lambda: L.gather_rows_reference(tab, idx, m), "gather_rows_kernel", nb, 0.0,
-                  library=library, cold=True)
+        t = timed(torch, f"gather_rows {site}" + (" with old rows" if old is not None else ""),
+                  lambda: L.gather_rows(tab, idx, m, old),
+                  lambda: L.gather_rows_reference(tab, idx, m, old), "gather_rows_kernel", nb,
+                  0.0, library=library, cold=True)
         # the main path reads its tables warm (the delivery what K3 wrote just
         # before), so the headline is the repeated calls' time; the cold one
         # is kept beside it
@@ -1216,7 +1309,7 @@ def scale_bounds(torch, state, params, sdf, exchange: str) -> dict:
     roundoff on the state's inbox and a seeded one, K3 (sender) on the
     synthetic variant of its inputs (the ring's 4.9 m spacing leaves no
     factor in range yet), K4 bit for bit at this exchange's call sites."""
-    from magics_tpu_torch.graph.exchange import sender_inputs
+    from magics_tpu_torch.graph.exchange import sender_gate, sender_inputs
     from magics_tpu_torch.kernels import gbp_slot as G
     from magics_tpu_torch.kernels import hot as HOT
     from magics_tpu_torch.kernels import ir_slot as IR
@@ -1249,9 +1342,10 @@ def scale_bounds(torch, state, params, sdf, exchange: str) -> dict:
         out.update({k: bound(*w)
                     for k, w in compact_work(messages, counts["delivered_slots"]).items()})
     if exchange == "sender":
-        # the bound of the main path's own inputs: nothing in range yet
-        inputs = sender_inputs(state, params)
-        seeded = inputs["seeded"]
+        # the bound of the main path's own call: nothing in range yet
+        inputs = {**sender_inputs(state, params), "old": state.ir_f2v_ext,
+                  "send_gate": sender_gate(state), "nbr_mask": state.nbr_mask}
+        seeded = inputs["seeded"] & (inputs["send_gate"][:, None] & state.nbr_mask)[..., None]
         snap = torch.where(seeded[..., None], inputs["snap_mu"][:, None, 1:, :2], 0.0)
         x = snap - inputs["p_ext"]
         live = seeded & ((x * x).sum(dim=-1) < (inputs["safety"] ** 2)[:, None, None])
@@ -1261,6 +1355,7 @@ def scale_bounds(torch, state, params, sdf, exchange: str) -> dict:
         interrobot_check(torch, state, params, "synthetic")
     sites = ("sender delivery", "sender response") if exchange == "sender" else (
         "receiver_compact table",)
+    selects = sender_selects(torch, state) if exchange == "sender" else {}
     nb = []
     for site, (tab, idx, m) in gather_sites(torch, state).items():
         if site not in sites:
@@ -1269,9 +1364,11 @@ def scale_bounds(torch, state, params, sdf, exchange: str) -> dict:
         if not torch.equal(got, L.gather_rows_reference(tab, idx, m)):
             raise AssertionError(f"gather_rows {site} R={state.n_robots}: differs from its "
                                  f"plain version")
-        read = idx if m is None else idx[m]
-        nb.append(int(read.unique().numel()) * tab.shape[1] * tab.element_size()
-                  + nbytes([got, idx]) + (nbytes([m]) if m is not None else 0))
+        old = None
+        if site in selects:   # the bound of the exchange's own call
+            m, old = selects[site]
+            got = gather_select_bits(torch, tab, idx, m, old, f"{site} R={state.n_robots}")
+        nb.append(gather_bytes(tab, idx, m, old, got))
         log(f"[scale] gather_rows {site} [{tab.shape[0]}, {tab.shape[1]}] -> "
             f"[{idx.shape[0]}, {tab.shape[1]}]: bit-equal to its plain version; bound "
             f"{1e3 * bound(nb[-1], 0.0)['bound_ms']:.3f} us ({nb[-1] / 1e6:.2f} MB)")
@@ -1530,15 +1627,19 @@ def state_fields_compare(torch, label: str, got, want) -> dict:
 
 def gather_bits(torch, state, label: str) -> None:
     """The row gather bit-equal to its plain version at every call site of
-    `state`'s shapes."""
+    `state`'s shapes, and at the sender's two as its exchange calls them
+    (with the delivered slots and the old rows)."""
     from magics_tpu_torch.kernels import layout as L
 
+    selects = sender_selects(torch, state)
     for site, (tab, idx, m) in gather_sites(torch, state).items():
         if not torch.equal(L.gather_rows(tab, idx, m), L.gather_rows_reference(tab, idx, m)):
             raise AssertionError(f"gather_rows {label} {site}: differs from its plain version")
+        if site in selects:
+            gather_select_bits(torch, tab, idx, *selects[site], f"{label} {site}")
     R, K = state.nbr_idx.shape
     log(f"[sim] gather_rows {label} (R={R}, K={K}): bit-equal to its plain version at all "
-        f"four call sites")
+        f"four call sites, and to the select at the sender's two")
 
 
 def slot_kernels_check(torch, state, params, sdf, label: str) -> None:
@@ -1562,16 +1663,18 @@ def slot_kernels_check(torch, state, params, sdf, label: str) -> None:
 def kernels_at(torch, state, params, sdf, label: str) -> None:
     """Every kernel of the path alone against its plain version on
     `state`'s inputs, at its shapes: K1, K2 and the external sums
-    (slot_kernels_check), K3
-    (interrobot_compare) and K4 (gather_bits). No whole tick is compared:
+    (slot_kernels_check), K3 (interrobot_compare, and its select as the
+    exchange calls it) and K4 (gather_bits). No whole tick is compared:
     on the chaotic crossings one float32 tick of the kernels' path and of
     the plain passes differs by up to 1.8e-2 of scale (the inter-robot
     messages, the circle at tick 15, both on the CPU), past TICK_RTOL."""
-    from magics_tpu_torch.graph.exchange import sender_inputs
+    from magics_tpu_torch.graph.exchange import sender_gate, sender_inputs
 
     slot_kernels_check(torch, state, params, sdf, label)
-    interrobot_compare(torch, sender_inputs(state, params), params.sigma_factor_interrobot,
-                       label)
+    inputs, sigma = sender_inputs(state, params), params.sigma_factor_interrobot
+    table, _ = interrobot_compare(torch, inputs, sigma, label)
+    select = dict(old=state.ir_f2v_ext, send_gate=sender_gate(state), nbr_mask=state.nbr_mask)
+    interrobot_select_bits(torch, inputs, select, table, sigma, f"{label} as called")
     gather_bits(torch, state, label)
 
 

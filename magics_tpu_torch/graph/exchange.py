@@ -52,25 +52,29 @@ from magics_tpu_torch.parallel.comm import LOCAL
 # gathers
 # --------------------------------------------------------------------------
 
-def gather_rows_pinned(arr: torch.Tensor, idx: torch.Tensor, mask=None) -> torch.Tensor:
-    """out[r, k, ...] = arr[idx[r, k], ...], 0 where `mask` [r, k] is false:
-    one row gather (K4, kernels/layout.py) of `arr` flattened to rows, at
-    each site where the JAX package pins XLA's layout around the gather.
-    `idx` is clipped by the caller."""
+def gather_rows_pinned(arr: torch.Tensor, idx: torch.Tensor, mask=None,
+                       old=None) -> torch.Tensor:
+    """out[r, k, ...] = arr[idx[r, k], ...] where `mask` [r, k] holds, else
+    `old[r, k, ...]` (0 without `old`): one row gather (K4,
+    kernels/layout.py) of `arr` flattened to rows, at each site where the
+    JAX package pins XLA's layout around the gather. `idx` is clipped by the
+    caller. The result is contiguous."""
     out = gather_rows(
         arr.reshape(arr.shape[0], -1).contiguous(), idx.reshape(-1).long(),
         None if mask is None else mask.reshape(-1),
+        None if old is None else old.reshape(idx.numel(), -1).contiguous(),
     )
     return out.reshape(idx.shape + arr.shape[1:])
 
 
-def gather_from_peer(arr: torch.Tensor, nbr_idx, back, mask) -> torch.Tensor:
-    """out[r, k, ...] = arr[nbr_idx[r,k], back[r,k], ...], 0 where ~mask.
-    `arr` must be a GLOBAL [R_total, K, ...] tensor (comm.all_robots'd).
-    One row gather (K4) of the flattened [R*K, ...] table."""
+def gather_from_peer(arr: torch.Tensor, nbr_idx, back, mask, old=None) -> torch.Tensor:
+    """out[r, k, ...] = arr[nbr_idx[r,k], back[r,k], ...] where `mask`,
+    else `old[r, k, ...]` (0 without `old`). `arr` must be a GLOBAL
+    [R_total, K, ...] tensor (comm.all_robots'd). One row gather (K4) of
+    the flattened [R*K, ...] table."""
     R, K = arr.shape[:2]
     idx = clip_idx(nbr_idx, R) * K + clip_idx(back, K)
-    return gather_rows_pinned(arr.reshape(R * K, *arr.shape[2:]), idx, mask)
+    return gather_rows_pinned(arr.reshape(R * K, *arr.shape[2:]), idx, mask, old)
 
 
 def gather_robot(arr: torch.Tensor, nbr_idx, mask) -> torch.Tensor:
@@ -88,6 +92,12 @@ def _delivered(state: SimState, gate: torch.Tensor, comm) -> tuple[torch.Tensor,
     gate_all = comm.all_robots(gate)
     src = clip_idx(state.nbr_idx, gate_all.shape[0])
     return src, gate[:, None] & state.nbr_mask & gate_all[src] & state.nbr_has_back
+
+
+def sender_gate(state: SimState) -> torch.Tensor:
+    """[R] bool: the robots that send in an external factor pass: active,
+    antenna on and not idle."""
+    return state.active & state.antenna & not_idle(state)
 
 
 def sender_inputs(state: SimState, params: GbpParams, comm=LOCAL) -> dict:
@@ -166,29 +176,25 @@ class Sender:
     def factor_pass(self, state: SimState, params: GbpParams, comm=LOCAL,
                     kernels: bool = False) -> SimState:
         """Each robot computes the outbox `ir_f2v_ext` of its own factors
-        (the kernel of kernels/ir_slot.py on the kernels' path, its plain
-        version elsewhere); r's inbox slot (r, k, i) receives from the
-        factor owned by j = nbr_idx[r, k] at its reciprocal slot, where j
-        produced this pass and r's antenna and mission gate hold."""
-        send_gate = state.active & state.antenna & not_idle(state)  # [R]
-        inputs = sender_inputs(state, params, comm)
-        sigma = params.sigma_factor_interrobot
-        if kernels:
-            msg = IR.interrobot_slot(**inputs, sigma=sigma)
-        else:
-            msg = IR.interrobot_slot_reference(**inputs, sigma=sigma)  # [R, K, V-1, 4]
-
-        produced = send_gate[:, None] & state.nbr_mask
-        ir_f2v_ext = torch.where(produced[..., None, None], msg, state.ir_f2v_ext)
-
+        where it produced (its gate and the slot hold), the old outbox
+        elsewhere: one launch of the kernel of kernels/ir_slot.py on the
+        kernels' path, its plain version elsewhere. r's inbox slot (r, k, i)
+        receives from the factor owned by j = nbr_idx[r, k] at its
+        reciprocal slot, where j produced this pass and r's antenna and
+        mission gate hold, and keeps its old row elsewhere: one row gather
+        (K4) with the old inbox."""
+        send_gate = sender_gate(state)
+        outbox = IR.interrobot_slot if kernels else IR.interrobot_slot_reference
+        ir_f2v_ext = outbox(**sender_inputs(state, params, comm),
+                            sigma=params.sigma_factor_interrobot, old=state.ir_f2v_ext,
+                            send_gate=send_gate, nbr_mask=state.nbr_mask)
+        # delivered implies a live slot, so the gather's mask is `deliver`
         _, deliver = _delivered(state, send_gate, comm)
-        in_msg = gather_from_peer(
-            comm.all_robots(ir_f2v_ext), state.nbr_idx, state.nbr_back, state.nbr_mask
-        )
         return replace(
             state,
             ir_f2v_ext=ir_f2v_ext,
-            ext_inbox=torch.where(deliver[..., None, None], in_msg, state.ext_inbox),
+            ext_inbox=gather_from_peer(comm.all_robots(ir_f2v_ext), state.nbr_idx,
+                                       state.nbr_back, deliver, state.ext_inbox),
             iter_count_factor=state.iter_count_factor + send_gate.to(torch.int32),
         )
 
@@ -196,12 +202,12 @@ class Sender:
                           comm=LOCAL) -> torch.Tensor:
         """`ir_v2f_ext_pos` after the external variable pass under `gate`,
         with own_pos [R, V-1, 2] the new belief positions: the factor (r, k)
-        receives j = nbr_idx[r, k]'s positions where delivered, one row
-        gather (K4) of the same positions for every reciprocal slot. The
-        result is contiguous (see `_responses`)."""
+        receives j = nbr_idx[r, k]'s positions where delivered and keeps its
+        old ones elsewhere, one row gather (K4) of the same positions for
+        every reciprocal slot, with the old positions. The result is
+        contiguous (see `_responses`)."""
         src, deliver = _delivered(state, gate, comm)
-        in_pos = gather_rows_pinned(comm.all_robots(own_pos), src, state.nbr_mask)
-        return _responses(state, deliver, in_pos)
+        return gather_rows_pinned(comm.all_robots(own_pos), src, deliver, state.ir_v2f_ext_pos)
 
     def reset_arrived(self, state: SimState, mask: torch.Tensor) -> dict:
         """The inter-robot fields of robots whose plan arrived (`mask` [R]):
@@ -283,7 +289,7 @@ class Receiver:
         tables = self._tables(state)
 
         part("exchange.gather", R, K, V1)
-        send_gate = state.active & state.antenna & not_idle(state)
+        send_gate = sender_gate(state)
         gate_all = comm.all_robots(send_gate)
         src = clip_idx(state.nbr_idx, gate_all.shape[0])
         width = tables.shape[-1]

@@ -8,12 +8,27 @@
 //                             position i (variable i+1) -- the compact rank-1
 //                             message (gx, gy, t, s) to its external
 //                             variable, as magics_tpu_torch/graph/factors.py:
-//                             interrobot_rank1_messages computes it.
+//                             interrobot_rank1_messages computes it,
+//                             and the sender exchange's select of that
+//                             table with the old outbox.
 //
 // Layout. It reads the state's own layout, no plane transposes (those exist
 // for the TPU's lanes): ir_int_seeded [R, K, V1] bool, ir_v2f_ext_pos
 // [R, K, V1, 2], rows 1..V-1 of snap_mu / snap_eta [R, V, 4] and snap_lam
-// [R, V, 4, 4], safety [R] and the global ids [R]; it writes [R, K, V1, 4].
+// [R, V, 4, 4], safety [R], the global ids [R], the old outbox [R, K, V1,
+// 4], the send gates [R] and the live-slot mask [R, K]; it writes the new
+// outbox [R, K, V1, 4].
+//
+// The outbox select. Given the old outbox [R, K, V1, 4], the send gates [R]
+// and the live-slot mask [R, K], it writes the whole new outbox: a factor's
+// message where its robot's gate and its slot's mask hold, the old entry
+// elsewhere (the sender exchange's `where(gate & mask, table, old)`, a
+// select, so bit for bit). A factor it does not take copies its old 16
+// bytes and joins no skip test: its seeded flag, peer and own position are
+// not read. At the swarm's
+// shapes (R=16384, K=24, V1=20) the select reads the old entry of each
+// untaken factor and a mask byte a slot; the plain select it replaces read
+// the table and the old outbox whole and wrote the new one, 377 MB.
 //
 // Threads (redesigned for this card). One thread per factor (r, k, i):
 // thread t = (r K + k) V1 + i of the table (655,360 at the bench shapes),
@@ -99,6 +114,9 @@ struct IrArgs {
   const float* snap_lam;        // [R, V, 4, 4]
   const float* safety;          // [R]
   const float* gids;            // [R]
+  const float* old;             // [R, K, V1, 4]
+  const unsigned char* gate;    // [R] bool
+  const unsigned char* nbr_mask;  // [R, K] bool
   float* out;                   // [R, K, V1, 4]
   int R, K, V;
   float alpha, four_alpha, rtol_alpha;
@@ -132,15 +150,21 @@ __global__ void __launch_bounds__(kMaxThreads) interrobot_slot_kernel(IrArgs A) 
   const int k = local / V1, i = local - k * V1;
   const size_t e = (size_t)r * KV1 + local;
 
+  // Whether the factor is taken (its robot's gate and its slot hold) and
+  // what an untaken one writes: its old entry.
+  const float4 zero4 = make_float4(0.f, 0.f, 0.f, 0.f);
+  const bool take = in && __ldg(A.gate + r) != 0 && __ldg(A.nbr_mask + (size_t)r * A.K + k) != 0;
+  const float4 keep = in && !take ? __ldg(reinterpret_cast<const float4*>(A.old) + e) : zero4;
+
   // The skip test first: an unseeded slot (empty cavity: M = alpha g g^T
   // has rank 1, so det = 0) or a pair at or beyond the safety distance gives
   // an empty message whatever the inverse says. Its loads and the block's
   // first snapshot words are issued together, before any waits for another.
   const float2 zero2 = make_float2(0.f, 0.f);
-  const bool seeded = in && __ldg(A.seeded + e) != 0;
-  const float2 p = in ? __ldg(reinterpret_cast<const float2*>(A.p_ext) + e) : zero2;
-  const float2 own = in ? __ldg(reinterpret_cast<const float2*>(A.snap_mu) + 2 * ((size_t)r * A.V + i + 1))
-                        : zero2;
+  const bool seeded = take && __ldg(A.seeded + e) != 0;
+  const float2 p = take ? __ldg(reinterpret_cast<const float2*>(A.p_ext) + e) : zero2;
+  const float2 own = take ? __ldg(reinterpret_cast<const float2*>(A.snap_mu) + 2 * ((size_t)r * A.V + i + 1))
+                          : zero2;
   const float4 first = threadIdx.x < n_raw ? cavity_piece(A, r, V1, threadIdx.x)
                                            : make_float4(0.f, 0.f, 0.f, 0.f);
   const float2 mu = seeded ? own : zero2;
@@ -151,7 +175,7 @@ __global__ void __launch_bounds__(kMaxThreads) interrobot_slot_kernel(IrArgs A) 
   const bool work = seeded && !skipped;
   float4* out = reinterpret_cast<float4*>(A.out) + e;
   if (!__syncthreads_or(work)) {   // no live factor in the block
-    if (in) *out = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (in) *out = keep;
     return;
   }
 
@@ -188,7 +212,7 @@ __global__ void __launch_bounds__(kMaxThreads) interrobot_slot_kernel(IrArgs A) 
   }
   __syncthreads();
   if (!work) {
-    if (in) *out = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (in) *out = keep;
     return;
   }
   auto cv = [&](int f) { return cav[f * V1 + i]; };   // the (seeded) cavity
@@ -263,20 +287,21 @@ __global__ void __launch_bounds__(kMaxThreads) interrobot_slot_kernel(IrArgs A) 
   const float sg = fabsf(s) * gmax2;
   const bool valid = fabsf(det) > 1e-6f && isfinite(s) && isfinite(tt) &&
                      sg <= A.four_alpha * gmax2 + 1.f && !(sg <= A.rtol_alpha * gmax2);
-  *out = valid ? make_float4(gx, gy, tt, s) : make_float4(0.f, 0.f, 0.f, 0.f);
+  *out = valid ? make_float4(gx, gy, tt, s) : zero4;
 }
 
 }  // namespace
 
 // C entry point, loaded with ctypes (kernels/ir_slot.py). Pointers are the
-// contiguous device buffers listed in IrArgs (snap_eta, snap_lam and out
+// contiguous device buffers listed in IrArgs (snap_eta, snap_lam, old and out
 // 16-byte aligned, p_ext and snap_mu 8-byte); alpha = 1/sigma^2, four_alpha = 4 alpha and rtol_alpha =
 // rtol alpha, each rounded from double to float. The kernel runs on `stream`
 // and is not waited for. Returns cudaGetLastError() after the launch;
 // launches nothing for an empty table.
 extern "C" int ir_interrobot_slot(const void* seeded, const void* p_ext, const void* snap_mu,
                                   const void* snap_eta, const void* snap_lam,
-                                  const void* safety, const void* gids, void* out, int R,
+                                  const void* safety, const void* gids, const void* old,
+                                  const void* gate, const void* nbr_mask, void* out, int R,
                                   int K, int V, float alpha, float four_alpha,
                                   float rtol_alpha, void* stream) {
   const int V1 = V - 1, KV1 = K * V1;
@@ -289,6 +314,9 @@ extern "C" int ir_interrobot_slot(const void* seeded, const void* p_ext, const v
   a.snap_lam = static_cast<const float*>(snap_lam);
   a.safety = static_cast<const float*>(safety);
   a.gids = static_cast<const float*>(gids);
+  a.old = static_cast<const float*>(old);
+  a.gate = static_cast<const unsigned char*>(gate);
+  a.nbr_mask = static_cast<const unsigned char*>(nbr_mask);
   a.out = static_cast<float*>(out);
   a.R = R;
   a.K = K;

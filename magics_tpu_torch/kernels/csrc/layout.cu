@@ -1,5 +1,5 @@
 // Hand-written Hopper (sm_90a) row gather: out[m, :] = table[idx[m], :],
-// and 0 where mask[m] is false.
+// and where mask[m] is false old[m, :], or 0 without an old table.
 //
 // What it replaces
 //   gather_rows_kernel  <- magics_tpu/kernels/layout.py:layout_pin (Pallas
@@ -16,6 +16,10 @@
 //                          slot), its response gather of the peers' belief
 //                          positions and the receiver exchanges' gather of
 //                          the peers' snapshot tables.
+//                          With an old table it is also the select that
+//                          follows the sender's two gathers (the old inbox,
+//                          the old response positions where nothing was
+//                          delivered), in the same launch.
 //
 // What bounds it on the H100. It moves bytes and computes nothing: per
 // output row it reads one index (8 B), one mask byte and one table row, and
@@ -38,7 +42,8 @@
 //     number by the row's width; a row's base is one 64-bit multiply.
 //   - Each thread reads its row's index and mask byte itself: the threads of
 //     a warp ask for the same few addresses, one L1 request.
-//   - A masked row is written as zeros and its table row is not read.
+//   - A masked row is written as its old row, or as zeros, and its table
+//     row is not read.
 //   - An output larger than kStreamBytes is written with evict-first stores
 //     (st.global.cs), which keep the table in L2: the receiver pack's 63 MB,
 //     more than the 50 MB L2 holds, so its consumer reads it from HBM
@@ -76,13 +81,17 @@ template <> __device__ __forceinline__ uint2 zero_word<uint2>() { return make_ui
 template <typename W>
 __global__ void __launch_bounds__(kThreads) gather_rows_kernel(
     const W* __restrict__ table, const long long* __restrict__ idx,
-    const unsigned char* __restrict__ mask, W* __restrict__ out, long long n_out, int words,
-    int span, bool stream) {
+    const unsigned char* __restrict__ mask, const W* __restrict__ old, W* __restrict__ out,
+    long long n_out, int words, int span, bool stream) {
   const int t = threadIdx.x, r = t / span, w = blockIdx.y * span + (t - r * span);
   const long long m = (long long)blockIdx.x * (kThreads / span) + r;
   if (w >= words || m >= n_out) return;
-  W v = zero_word<W>();
-  if (mask == nullptr || __ldg(mask + m)) v = __ldg(table + __ldg(idx + m) * words + w);
+  W v;
+  if (mask == nullptr || __ldg(mask + m)) {
+    v = __ldg(table + __ldg(idx + m) * words + w);
+  } else {
+    v = old != nullptr ? __ldg(old + m * words + w) : zero_word<W>();
+  }
   W* dst = out + m * words + w;
   if (stream) {
     __stcs(dst, v);
@@ -91,9 +100,10 @@ __global__ void __launch_bounds__(kThreads) gather_rows_kernel(
   }
 }
 
-// The largest word that divides the row size and both base addresses.
-int word_bytes(const void* table, const void* out, long long row_bytes) {
-  const uintptr_t bits = reinterpret_cast<uintptr_t>(table) |
+// The largest word that divides the row size and the base addresses (old's
+// where given).
+int word_bytes(const void* table, const void* old, const void* out, long long row_bytes) {
+  const uintptr_t bits = reinterpret_cast<uintptr_t>(table) | reinterpret_cast<uintptr_t>(old) |
                          reinterpret_cast<uintptr_t>(out) | static_cast<uintptr_t>(row_bytes);
   int word = 16;
   while (word > 1 && (bits % word) != 0) word /= 2;
@@ -101,8 +111,8 @@ int word_bytes(const void* table, const void* out, long long row_bytes) {
 }
 
 template <typename W>
-int launch(const void* table, const long long* idx, const unsigned char* mask, void* out,
-           long long n_out, long long row_bytes, cudaStream_t stream) {
+int launch(const void* table, const long long* idx, const unsigned char* mask, const void* old,
+           void* out, long long n_out, long long row_bytes, cudaStream_t stream) {
   const long long n_words = row_bytes / (long long)sizeof(W);
   if (n_words > 65535LL * kThreads) return static_cast<int>(cudaErrorInvalidValue);
   const int words = static_cast<int>(n_words);
@@ -113,8 +123,8 @@ int launch(const void* table, const long long* idx, const unsigned char* mask, v
   const int slices = (words + span - 1) / span;
   gather_rows_kernel<W><<<dim3(static_cast<unsigned>(rows_blocks), slices), rpb * span, 0,
                           stream>>>(
-      static_cast<const W*>(table), idx, mask, static_cast<W*>(out), n_out, words, span,
-      n_out * row_bytes > kStreamBytes);
+      static_cast<const W*>(table), idx, mask, static_cast<const W*>(old), static_cast<W*>(out),
+      n_out, words, span, n_out * row_bytes > kStreamBytes);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -122,26 +132,31 @@ int launch(const void* table, const long long* idx, const unsigned char* mask, v
 
 // C entry points, loaded with ctypes (kernels/layout.py). `table` is a
 // contiguous [n, row_bytes] byte matrix, `idx` n_out int64 row indexes in
-// [0, n), `mask` n_out bools or null, `out` a contiguous [n_out, row_bytes]
-// byte matrix. The kernel runs on `stream` and is not waited for. Returns
-// cudaGetLastError() after the launch; launches nothing when there is
-// nothing to copy, and returns cudaErrorInvalidValue where the grid would
-// be too large (more than 2^31 - 1 blocks of rows, or a row of more than
-// 65,535 slices of 256 words).
+// [0, n), `mask` n_out bools or null, `old` a contiguous [n_out, row_bytes]
+// byte matrix or null (read only where `mask` is false), `out` a
+// contiguous [n_out, row_bytes] byte matrix. The kernel runs on `stream`
+// and is not waited for. Returns cudaGetLastError() after the launch;
+// launches nothing when there is nothing to copy, and returns
+// cudaErrorInvalidValue where the grid would be too large (more than
+// 2^31 - 1 blocks of rows, or a row of more than 65,535 slices of 256
+// words).
 extern "C" int gather_rows(const void* table, const long long* idx, const unsigned char* mask,
-                           void* out, long long n_out, long long row_bytes, void* stream) {
+                           const void* old, void* out, long long n_out, long long row_bytes,
+                           void* stream) {
   if (n_out <= 0 || row_bytes <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (word_bytes(table, out, row_bytes)) {
-    case 16: return launch<uint4>(table, idx, mask, out, n_out, row_bytes, s);
-    case 8: return launch<uint2>(table, idx, mask, out, n_out, row_bytes, s);
-    case 4: return launch<unsigned int>(table, idx, mask, out, n_out, row_bytes, s);
-    case 2: return launch<unsigned short>(table, idx, mask, out, n_out, row_bytes, s);
-    default: return launch<unsigned char>(table, idx, mask, out, n_out, row_bytes, s);
+  switch (word_bytes(table, old, out, row_bytes)) {
+    case 16: return launch<uint4>(table, idx, mask, old, out, n_out, row_bytes, s);
+    case 8: return launch<uint2>(table, idx, mask, old, out, n_out, row_bytes, s);
+    case 4: return launch<unsigned int>(table, idx, mask, old, out, n_out, row_bytes, s);
+    case 2: return launch<unsigned short>(table, idx, mask, old, out, n_out, row_bytes, s);
+    default: return launch<unsigned char>(table, idx, mask, old, out, n_out, row_bytes, s);
   }
 }
 
-// The word size, in bytes, a gather of these buffers copies with.
-extern "C" int gather_rows_word_bytes(const void* table, const void* out, long long row_bytes) {
-  return word_bytes(table, out, row_bytes);
+// The word size, in bytes, a gather of these buffers copies with (`old`
+// may be null).
+extern "C" int gather_rows_word_bytes(const void* table, const void* old, const void* out,
+                                      long long row_bytes) {
+  return word_bytes(table, old, out, row_bytes);
 }

@@ -8,12 +8,15 @@ factor (robot r, neighbour slot k, chain position i) it computes the
 compact rank-1 message (gx, gy, t, s) to the factor's external variable
 from r's snapshot of variable i+1 (the cavity, where seeded), the external
 variable's position as r holds it, the safety distance and a per-factor
-tiny offset. The plain version calls `factors.interrobot_rank1_messages`,
-the port's one copy of that maths.
+tiny offset, where r's send gate and slot k's mask hold, and keeps the old
+outbox's entry elsewhere. The plain version calls
+`factors.interrobot_rank1_messages`, the port's one copy of that maths,
+and selects with `torch.where`.
 
 The kernel reads the state's own layout ([R, K, V-1] slot tables, the
 [R, V, ...] snapshots) and writes [R, K, V-1, 4]; the plane transposes of
-the JAX wrapper exist for the TPU's lanes and are not carried over.
+the JAX wrapper exist for the TPU's lanes and are not carried over. It
+writes the new outbox whole, the select in the same launch.
 
 On CUDA tensors `interrobot_slot` checks device, dtype, shape and
 contiguity, allocates a fresh output, launches the kernel on the current
@@ -49,11 +52,15 @@ def interrobot_slot_reference(
     safety: torch.Tensor,    # [R]
     gids: torch.Tensor,      # [R]
     sigma: float,
+    old: torch.Tensor,       # [R, K, V1, 4]
+    send_gate: torch.Tensor,  # [R] bool
+    nbr_mask: torch.Tensor,  # [R, K] bool
 ) -> torch.Tensor:
     """The plain version (magics_tpu tick.py:external_factor_pass, the
     sender branch without Pallas): the internal cavity is the belief
     snapshot where the slot is seeded (empty elsewhere), and the tiny offset
-    is fixed by slot position. Returns [R, K, V1, 4]."""
+    is fixed by slot position. Returns the new outbox [R, K, V1, 4]: the
+    messages where `send_gate[r] & nbr_mask[r, k]` holds, `old` elsewhere."""
     R, K, V1 = seeded.shape
     f = snap_mu.dtype
     s3 = seeded[..., None]
@@ -69,10 +76,11 @@ def interrobot_slot_reference(
         + torch.arange(V1, dtype=f, device=gids.device)[None, None, :]
         + 1.0
     )
-    return F.interrobot_rank1_messages(
+    msg = F.interrobot_rank1_messages(
         x_int, p_ext, cav_eta, cav_lam, safety[:, None, None].expand(R, K, V1), tiny,
         sigma, dtype=f,
     )
+    return torch.where((send_gate[:, None] & nbr_mask)[..., None, None], msg, old)
 
 
 _LIB: ctypes.CDLL | None = None
@@ -86,14 +94,15 @@ def _lib() -> ctypes.CDLL:
 
         lib = load("ir_slot")
         ptr, c_int, c_float = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.ir_interrobot_slot.argtypes = [ptr] * 8 + [c_int] * 3 + [c_float] * 3 + [ptr]
+        lib.ir_interrobot_slot.argtypes = [ptr] * 11 + [c_int] * 3 + [c_float] * 3 + [ptr]
         lib.ir_interrobot_slot.restype = c_int
         _LIB = lib
     return _LIB
 
 
 #: the kernel reads these in 8- or 16-byte words
-_ALIGN = {"p_ext": 8, "snap_mu": 8, "snap_eta": 16, "snap_lam": 16}
+_ALIGN = {"p_ext": 8, "snap_mu": 8, "snap_eta": 16, "snap_lam": 16, "old": 16}
+_BOOL = ("seeded", "send_gate", "nbr_mask")
 
 
 def _checked(inputs: dict) -> tuple[int, int, int]:
@@ -104,10 +113,11 @@ def _checked(inputs: dict) -> tuple[int, int, int]:
     shapes = {
         "seeded": (R, K, V1), "p_ext": (R, K, V1, 2), "snap_mu": (R, V, 4),
         "snap_eta": (R, V, 4), "snap_lam": (R, V, 4, 4), "safety": (R,), "gids": (R,),
+        "old": (R, K, V1, 4), "send_gate": (R,), "nbr_mask": (R, K),
     }
     for name, want in shapes.items():
         x = inputs[name]
-        dtype = torch.bool if name == "seeded" else torch.float32
+        dtype = torch.bool if name in _BOOL else torch.float32
         if x.device != seeded.device:
             raise ValueError(f"{name} is on {x.device}, seeded on {seeded.device}")
         if x.dtype != dtype:
@@ -130,12 +140,16 @@ def interrobot_slot(
     safety: torch.Tensor,
     gids: torch.Tensor,
     sigma: float,
+    old: torch.Tensor,
+    send_gate: torch.Tensor,
+    nbr_mask: torch.Tensor,
 ) -> torch.Tensor:
-    """The message table [R, K, V1, 4]: the CUDA kernel on CUDA tensors
+    """The new outbox [R, K, V1, 4]: the CUDA kernel on CUDA tensors
     (float32), the plain version on CPU tensors. Arguments as for
     `interrobot_slot_reference`."""
     inputs = dict(seeded=seeded, p_ext=p_ext, snap_mu=snap_mu, snap_eta=snap_eta,
-                  snap_lam=snap_lam, safety=safety, gids=gids)
+                  snap_lam=snap_lam, safety=safety, gids=gids, old=old, send_gate=send_gate,
+                  nbr_mask=nbr_mask)
     if seeded.device.type == "cpu":
         return interrobot_slot_reference(**inputs, sigma=sigma)
     if seeded.device.type != "cuda":
@@ -149,10 +163,8 @@ def interrobot_slot(
     alpha = 1.0 / (sigma * sigma)
     rtol = 1e-4
     rc = _lib().ir_interrobot_slot(
-        *(inputs[n].data_ptr() for n in ("seeded", "p_ext", "snap_mu", "snap_eta",
-                                         "snap_lam", "safety", "gids")),
-        out.data_ptr(), R, K, V, alpha, 4.0 * alpha, rtol * alpha,
-        current_stream(seeded.get_device()),
+        *(x.data_ptr() for x in inputs.values()), out.data_ptr(), R, K, V, alpha,
+        4.0 * alpha, rtol * alpha, current_stream(seeded.get_device()),
     )
     if rc != 0:
         raise RuntimeError(f"interrobot_slot kernel launch failed: cudaError {rc}")

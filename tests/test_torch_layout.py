@@ -87,11 +87,58 @@ def test_gather_rows_is_index_select(dtype, width, masked):
 
 
 @pytest.mark.parametrize(
+    "dtype, width",
+    [(torch.float32, 80), (torch.float32, 40), (torch.float32, 3), (torch.float64, 5),
+     (torch.int32, 7), (torch.bool, 6)],
+)
+def test_gather_rows_with_old_is_the_where(dtype, width):
+    """With old rows the plain version is `where(mask, index_select, old)`,
+    bit for bit (NaNs of the old rows included); without them, the zeros."""
+    g = torch.Generator().manual_seed(width)
+    table = (torch.randn(11, width, generator=g) * 100).to(dtype)
+    idx = torch.randint(0, 11, (17,), generator=g)
+    mask = torch.rand(17, generator=g) > 0.4
+    old = (torch.randn(17, width, generator=g) * 100).to(dtype)
+    if dtype.is_floating_point:
+        old.view(-1)[::3] = float("nan")
+    got = L.gather_rows(table, idx, mask, old)
+    want = torch.where(mask[:, None], table.index_select(0, idx), old)
+    assert got.dtype == dtype and torch.equal(got.view(torch.uint8), want.view(torch.uint8))
+    assert torch.equal(L.gather_rows(table, idx, mask),
+                       torch.where(mask[:, None], table.index_select(0, idx),
+                                   torch.zeros_like(old)))
+    assert L.launch_counts["gather_rows"] == 0            # CPU: no kernel launch
+
+
+def test_sender_gathers_with_old_are_the_selects_they_replace(tables):
+    """The sender's delivery and response gathers with the old rows equal
+    the masked gather followed by the select on `deliver`, a subset of the
+    live slots, as the exchange ran them before (`deliver` implies
+    `nbr_mask`, so the zeros the select replaces were never kept)."""
+    arr, nbr_idx, back, mask = map(_t, tables)
+    g = torch.Generator().manual_seed(9)
+    deliver = mask & (torch.rand(mask.shape, generator=g) > 0.3)
+    old = torch.randn(arr.shape, generator=g, dtype=arr.dtype)
+    got = EX.gather_from_peer(arr, nbr_idx, back, deliver, old)
+    want = torch.where(deliver[..., None, None], EX.gather_from_peer(arr, nbr_idx, back, mask), old)
+    assert torch.equal(got, want)
+    assert bool(deliver.any()) and bool((mask & ~deliver).any())
+    pos = arr[:, 0, :, :2].contiguous()                   # [R, V1, 2]
+    src = nbr_idx.clamp(0, R - 1).long()
+    old_pos = torch.randn((R, K, V1, 2), generator=g, dtype=arr.dtype)
+    got = EX.gather_rows_pinned(pos, src, deliver, old_pos)
+    want = torch.where(deliver[..., None, None], EX.gather_rows_pinned(pos, src, mask), old_pos)
+    assert got.is_contiguous() and torch.equal(got, want)
+
+
+@pytest.mark.parametrize(
     "bad",
-    ["idx_int32", "idx_2d", "table_1d", "mask_dtype", "mask_shape", "meta_device"],
+    ["idx_int32", "idx_2d", "table_1d", "mask_dtype", "mask_shape", "meta_device",
+     "old_without_mask", "old_dtype", "old_shape"],
 )
 def test_gather_rows_refuses_what_it_does_not_take(bad):
     table, idx, mask = torch.zeros(4, 3), torch.zeros(5, dtype=torch.int64), None
+    old = None
     if bad == "idx_int32":
         idx = idx.int()
     elif bad == "idx_2d":
@@ -102,7 +149,12 @@ def test_gather_rows_refuses_what_it_does_not_take(bad):
         mask = torch.ones(5)
     elif bad == "mask_shape":
         mask = torch.ones(4, dtype=torch.bool)
+    elif bad == "old_without_mask":
+        old = torch.zeros(5, 3)
+    elif bad.startswith("old_"):
+        mask = torch.ones(5, dtype=torch.bool)
+        old = torch.zeros(5, 3, dtype=torch.float64) if bad == "old_dtype" else torch.zeros(5, 4)
     else:
         table, idx = table.to("meta"), idx.to("meta")
     with pytest.raises((TypeError, ValueError)):
-        L.gather_rows(table, idx, mask)
+        L.gather_rows(table, idx, mask, old)
